@@ -1,5 +1,5 @@
 # Container image for the experiment pipeline (CPU parity mode).
-# TPU runs use your accelerator platform's JAX wheel instead of jax[cpu].
+# GPU runs install jax[cuda12] instead of jax[cpu].
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -17,6 +17,6 @@ COPY posthoc ./posthoc
 COPY tests ./tests
 COPY Makefile bench.py __graft_entry__.py ./
 
-RUN pip install --no-cache-dir "jax[cpu]" && pip install --no-cache-dir -e .
+RUN pip install --no-cache-dir "jax[cpu]" && pip install --no-cache-dir -e ".[reference]"
 
 CMD ["make", "all"]

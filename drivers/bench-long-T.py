@@ -15,7 +15,7 @@ joint applies.  One (C, n) log-likelihood evaluation is the unit (the
 filter is the E-step's density engine there).
 
 Prints one line per T with ms/EM-iteration for each path (dense skipped
-once its joint moments exceed the chip); run on TPU, ~4 min.
+once its joint moments exceed the device); run on the GPU.
 """
 
 import functools
@@ -95,8 +95,7 @@ def time_markov(z, x, lens, T, params, iters=10):
     n = z.shape[1]
     lj = jnp.asarray(lens.astype(np.int32))
     a = jnp.zeros((n,), jnp.int32)
-    # emstep_markov dispatches internally: static-unroll kernel for
-    # T <= 16, grid-over-T kernels beyond (compile time T-independent)
+    # emstep_markov without phi= builds Φ inside every call
     step = jax.jit(functools.partial(em.emstep_markov, T=T))
     ztp = jnp.transpose(z, (0, 2, 1)).reshape(T * D_H, n)
     xtp = jnp.transpose(x, (0, 2, 1)).reshape(T * D_O, n)
@@ -116,7 +115,7 @@ def time_markov_phi(z, x, lens, T, params, iters=10):
     Φ's row count is T-independent, so the per-iteration cost stops
     growing with T entirely (the O(T) cost moves into the single
     materialization pass)."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov as pm
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi as pm
 
     n = z.shape[1]
     lj = jnp.asarray(lens.astype(np.int32))
@@ -161,10 +160,8 @@ def time_markov_phi(z, x, lens, T, params, iters=10):
 
 
 def time_kalman_masked(z, x, T, params, iters=10):
-    """(ms per (C, n) masked-filter log-likelihood evaluation on the
-    ROUTED path — the Pallas grid kernel on TPU, the XLA scan elsewhere
-    — ms on the scalarized XLA filter explicitly, ms per full EM
-    iteration E+M on the routed path) with ~30% interior per-coordinate
+    """(ms per (C, n) masked-filter log-likelihood evaluation, ms per
+    full EM iteration E+M) with ~30% interior per-coordinate
     missingness injected on top of the batch — the training regime
     neither the suffix-Markov kernel nor (past T≈64) the dense joint
     covers."""
@@ -183,21 +180,6 @@ def time_kalman_masked(z, x, T, params, iters=10):
     float(ll[0, 0])
     ll_ms = (time.perf_counter() - t0) / iters * 1e3
 
-    from multimodal_trajectory_modeling_tpu.ops import kalman as kops
-
-    xla_fn = jax.jit(
-        lambda p, zz, xx: kops.kalman_masked_logliks(
-            zz, xx, p.m, p.S, p.A, p.G, p.H, p.L
-        )
-    )
-    ll = xla_fn(params, zj, xj)
-    float(ll[0, 0])
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        ll = xla_fn(params, zj, xj)
-    float(ll[0, 0])
-    xla_ms = (time.perf_counter() - t0) / iters * 1e3
-
     @jax.jit
     def em_step(params, zj, xj):
         ll = em.masked_logliks_kalman(params, zj, xj)
@@ -211,22 +193,19 @@ def time_kalman_masked(z, x, T, params, iters=10):
         p2, a2 = em_step(params, zj, xj)
     float(p2.A[0, 0, 0])
     em_ms = (time.perf_counter() - t0) / iters * 1e3
-    return ll_ms, xla_ms, em_ms
+    return ll_ms, em_ms
 
 
 def time_suffix_inference(z, x, lens, T, params, iters=50, reps=3):
     """ms per one-shot (C, n) suffix-missingness INFERENCE call on the
-    routed path (`em.suffix_logliks_markov`: grid-materialized canonical
-    Φ + full-precision weight GEMM on TPU, XLA slice-pair elsewhere) —
+    routed path (`em.suffix_logliks_markov`: the XLA slice-pair
+    formulation) —
     held-out scoring / held-out model selection is this call; compare
     against the masked-filter column (its exact arbitrary-missingness
     superset, ~26× slower at T=300 on suffix data).
 
-    Min-of-``reps`` over ``iters`` pipelined calls: at iters=10 the
-    remote dispatch round-trip put ~2-8 ms of NOISE on each ms-scale
-    reading — the round-3/4 tables' non-monotone small-T column
-    (12.7 ms at T=32 vs 8.4 at T=64) was entirely this artifact; the
-    re-measured column is linear in T (~0.093 ms/step at n=1e5)."""
+    Min-of-``reps`` over ``iters`` pipelined calls, so that dispatch
+    jitter does not land on the ms-scale readings."""
     lj = jnp.asarray(lens.astype(np.int32))
     ll = em.suffix_logliks_markov(params, z, x, lj)
     float(ll[0, 0])
@@ -241,29 +220,24 @@ def time_suffix_inference(z, x, lens, T, params, iters=50, reps=3):
 
 
 def time_dense(z, x, v, patterns, pid, T, params, iters=10):
+    """ms per dense-joint EM iteration: the E step with per-pattern
+    precomputed inverses (train(fast=True)'s dense route) plus the M
+    step."""
     n = v.shape[0]
-    order = np.argsort(pid, kind="stable")
-    sizes = tuple(int(s) for s in np.bincount(pid, minlength=patterns.shape[0]))
-    oj = jnp.asarray(order)
-    vs = v[oj]
-    vt = jnp.swapaxes(vs, 0, 1)
+    pj = jnp.asarray(pid)
 
-    @functools.partial(jax.jit, static_argnames=("sizes",))
-    def step(params, assign, vj, vjt, pj, sizes):
-        na, cc, sw = em.estep_assign_sorted(
-            params, vj, pj, assign, sizes=sizes, T=T, v_sorted_t=vjt
-        )
-        np_ = em.mstep_sorted(
-            vj, na, pj, sizes=sizes, T=T, d=D_H, l=D_O, n_clusters=C
-        )
-        return np_, na
+    @jax.jit
+    def step(params, assign):
+        ll = em.estep_logliks(params, v, patterns, pj, T=T, method="inverse")
+        na = em.assignments_from_logliks(params.pi, ll)
+        return em.mstep(z, x, na, n_clusters=C), na
 
     a = jnp.zeros((n,), jnp.int32)
-    p, a = step(params, a, vs, vt, patterns, sizes=sizes)
+    p, a = step(params, a)
     float(p.A[0, 0, 0])
     t0 = time.perf_counter()
     for _ in range(iters):
-        p, a = step(params, a, vs, vt, patterns, sizes=sizes)
+        p, a = step(params, a)
     float(p.A[0, 0, 0])
     return (time.perf_counter() - t0) / iters * 1e3
 
@@ -287,7 +261,7 @@ def main():
         mk = time_markov(z, x, lens, T, params)
         mat_ms, mk_phi = time_markov_phi(z, x, lens, T, params)
         inf_ms = time_suffix_inference(z, x, lens, T, params)
-        ka, ka_xla, ka_em = time_kalman_masked(z, x, T, params)
+        ka, ka_em = time_kalman_masked(z, x, T, params)
         if T <= DENSE_T_MAX:
             dn = time_dense(z, x, v, patterns, pid, T, params)
             print(
@@ -296,7 +270,7 @@ def main():
                 f"   infer {inf_ms:7.2f} ms"
                 f"   dense {dn:8.2f} ms/iter"
                 f"   ({dn/mk:.1f}x)   kalman-masked {ka:8.2f} ms/eval"
-                f" (xla {ka_xla:.2f}) {ka_em:8.2f} ms/EM-iter",
+                f" {ka_em:8.2f} ms/EM-iter",
                 flush=True,
             )
         else:
@@ -307,7 +281,7 @@ def main():
                 f"   infer {inf_ms:7.2f} ms"
                 f"   dense —— "
                 f"((T(d+l))² joint = {(T*(D_H+D_O))}² per (cluster, pattern))"
-                f"   kalman-masked {ka:8.2f} ms/eval (xla {ka_xla:.2f})"
+                f"   kalman-masked {ka:8.2f} ms/eval"
                 f" {ka_em:8.2f} ms/EM-iter",
                 flush=True,
             )
@@ -317,7 +291,6 @@ def main():
                      "suffix_infer_ms": round(inf_ms, 2),
                      "dense_ms": None if dn is None else round(dn, 2),
                      "kalman_masked_ms": round(ka, 2),
-                     "kalman_masked_xla_ms": round(ka_xla, 2),
                      "kalman_em_ms": round(ka_em, 2)})
     print(json.dumps({"metric": "em_ms_per_iter_vs_T", "n": N, "rows": rows}))
 

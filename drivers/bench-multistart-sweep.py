@@ -17,7 +17,7 @@ noisy-label inits (30% resampled) so no start hits the near-empty guard
 at iteration one.  EM iteration caps keep wall time bounded; throughput
 is reported as aggregate EM iterations/sec across the sweep.
 
-Usage: python drivers/bench-multistart-sweep.py  (TPU; ~3 min)
+Usage: python drivers/bench-multistart-sweep.py  (GPU)
 """
 
 import functools
@@ -45,7 +45,7 @@ R = int(os.environ.get("MTM_SWEEP_STARTS", 64))
 T, D_H, D_O, C = 10, 5, 3, 16
 N_STEPS = 20
 # the vmapped XLA path materializes a (batch, C, D, n) residual tensor —
-# f32[8,16,80,1e6] = 40 GB at batch 8 — so 2 is the 16 GB-HBM ceiling
+# f32[8,16,80,1e6] = 40 GB at batch 8 — so batches stay small
 VMAP_BATCH = 2
 _LENGTHS = (T // 2, T - 2, T)
 
@@ -170,8 +170,8 @@ def main():
 
     # --- fused-multi path: R_FUSE restarts per kernel pass ------------
     # (one batch read + one parameter-independent feature build per
-    # iteration amortized over the chunk; scores GEMM runs at C·R_FUSE
-    # rows — a full MXU tile at the default 8×16)
+    # iteration amortized over the chunk; the score GEMM runs at C·R_FUSE
+    # rows)
     R_FUSE = int(os.environ.get("MTM_MULTISTART_FUSE", "8"))
     u_pack = jax.jit(
         functools.partial(em.pack_markov_batch, T=T, d=D_H, l=D_O)

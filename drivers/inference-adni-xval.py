@@ -27,8 +27,8 @@ import jax
 
 from multimodal_trajectory_modeling_tpu import config as mtm_config
 
-# Parity mode: the reference computes in float64; TPU lacks f64 linalg, so
-# the ADNI-scale drivers run on CPU x64 (set MTM_DEVICE=tpu for f32-on-TPU).
+# Parity mode: the reference computes in float64, so the ADNI-scale drivers
+# run on CPU x64 by default (set MTM_DEVICE=gpu for float32 on the GPU).
 if os.environ.get("MTM_DEVICE", "cpu") == "cpu":
     mtm_config.use_cpu_x64()
 mtm_config.enable_persistent_compilation_cache()

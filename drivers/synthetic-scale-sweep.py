@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Synthetic scale sweep on the accelerator: batched EM over n_clusters on
-1M trajectories (BASELINE.json config #5 — "model-selection sweep over n_c
-with batched EM on TPU").
+1M trajectories (BASELINE.json config #5, the model-selection sweep over
+n_c with batched EM).
 
 For each cluster count, trains hard-EM to convergence (bounded steps) on
 the same 1M-trajectory synthetic batch (T=10, d=5, l=3, NaN-padded to three
@@ -9,7 +9,7 @@ lengths) and reports per-iteration throughput, iterations to convergence
 and the complete-data objective — the model-selection curve at a scale
 ~1750× the ADNI study.
 
-Run on the TPU (default platform); float32.
+Run on the GPU (default platform); float32.
 """
 
 import json

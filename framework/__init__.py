@@ -1,2 +1,2 @@
 """Compatibility layer: the reference's ``framework`` import path, backed by
-the TPU-native implementation in ``multimodal_trajectory_modeling_tpu``."""
+the JAX implementation in ``multimodal_trajectory_modeling_tpu``."""

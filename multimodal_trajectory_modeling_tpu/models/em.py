@@ -16,10 +16,10 @@ Reference semantics (framework/marginalizable_mixture_model.py):
 - Objective (``e_complete_data_log_lik`` :579-624): hard-assignment complete
   data log-likelihood with a *fresh* E assignment.
 
-TPU-native design: per-cluster Python lists become stacked ``(C, …)`` arrays
-in a :class:`MixtureParams` pytree; the per-instance numba loop becomes the
-pattern-grouped masked Gaussian kernel; the M step is a handful of einsums
-(MXU) + tiny per-cluster solves; the training loop is a ``lax.while_loop``
+Accelerator design: per-cluster Python lists become stacked ``(C, …)``
+arrays in a :class:`MixtureParams` pytree; the per-instance numba loop
+becomes the pattern-grouped masked Gaussian kernel; the M step is a handful
+of einsums + tiny per-cluster solves; the training loop is a ``lax.while_loop``
 whose state carries a status code replicating the reference's exact stop
 conditions.  Everything vmaps over a leading *restart* axis for multi-start
 training and shards over the trajectory axis for data parallelism.
@@ -69,7 +69,6 @@ __all__ = [
     "observed_logliks_kalman",
     "masked_logliks_kalman",
     "train_em",
-    "train_em_sorted",
     "train_em_masked_kalman",
     "train_em_masked_kalman_pool",
     "train_em_markov",
@@ -85,9 +84,7 @@ __all__ = [
     "mstep_multi",
     "complete_data_loglik_markov_multi",
     "emstep_markov_xla",
-    "estep_assign_sorted",
     "estep_assign_markov",
-    "mstep_sorted",
 ]
 
 STATUS_RUNNING = 0
@@ -183,49 +180,16 @@ def estep_logliks(
     (marginalizable_mixture_model.py:439-494) — rebuild mm/CC per cluster,
     one masked-Gaussian kernel call over all instances.
 
-    ``method`` selects the quadratic-form path: ``"solve"`` (triangular
-    solves), ``"inverse"`` (precomputed inverses, MXU GEMMs) or
-    ``"pallas"`` (the fused TPU kernel, ops/pallas_estep.py)."""
+    ``method`` selects the quadratic-form path of
+    :func:`..ops.gaussian.masked_mvn_logpdf_grouped`: ``"solve"``
+    (triangular solves), ``"inverse"`` (precomputed inverses, GEMMs),
+    ``"bucketed"`` or ``"auto"``."""
     means, covs = cluster_joint_moments(params, T)
-    if method == "pallas":
-        from multimodal_trajectory_modeling_tpu.ops import pallas_estep
-
-        return pallas_estep.estep_logliks_fused(
-            means, covs, v, patterns, pattern_id
-        )
     return jax.vmap(
         lambda mu, cov: gops.masked_mvn_logpdf_grouped(
             v, mu, cov, patterns, pattern_id, method=method
         )
     )(means, covs)
-
-
-def estep_logliks_sorted(
-    params: MixtureParams,
-    v_sorted: jax.Array,
-    patterns: jax.Array,
-    *,
-    sizes: tuple,
-    T: int,
-    interpret: bool = None,
-) -> jax.Array:
-    """``(C, n)`` log-likelihoods for a batch whose rows are pre-sorted by
-    pattern id, via the single-pattern-per-segment fused kernel
-    (ops/pallas_estep.py:estep_logliks_pattern_sorted).  ``sizes`` is the
-    static tuple of per-pattern row counts.  Same values as
-    :func:`estep_logliks`, permuted — patterns are fixed across EM
-    iterations, so callers sort once outside the loop (see bench.py)."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_estep
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-    means, covs = cluster_joint_moments(params, T)
-    minv, const = pallas_estep.precompute_cluster_pattern_inverses(
-        means, covs, patterns
-    )
-    return pallas_estep.estep_logliks_pattern_sorted(
-        v_sorted, means, minv, const, sizes=sizes, interpret=interpret
-    )
 
 
 @functools.partial(jax.jit, static_argnames=("T", "method"))
@@ -258,11 +222,10 @@ def observed_logliks_kalman(
     :func:`observed_logliks` under suffix missingness (f64-identical to
     the dense observed-moments path, tested).
 
-    Past T = 128 the suffix filter's per-row pass needs either a static
-    unroll (huge graphs) or a large-carry scan (the remote compiler
-    takes >9 min) — there the scalarized masked filter takes over with
-    an all-NaN state block (observed-only is its z-fully-missing special
-    case; its (n,)-leaf scan compiles in seconds)."""
+    Past T = 128 the scalarized masked filter takes over with an all-NaN
+    state block (observed-only is its z-fully-missing special case; its
+    (n,)-leaf scan compiles in seconds where the suffix filter's
+    large-carry scan does not)."""
     from multimodal_trajectory_modeling_tpu.ops import kalman
 
     T = x.shape[0]
@@ -270,59 +233,17 @@ def observed_logliks_kalman(
         z_none = jnp.full(
             (T, x.shape[1], params.m.shape[1]), jnp.nan, x.dtype
         )
-        # routed entry: Pallas filter kernel on TPU, XLA scan elsewhere
         return masked_logliks_kalman(params, z_none, x)
     return kalman.kalman_observed_logliks(
         x, lens, params.m, params.S, params.A, params.G, params.H, params.L
     )
 
 
-def _pallas_kalman_mode() -> str:
-    """Routing mode for the masked-filter E pass: ``"compiled"`` — the
-    Pallas grid kernel (TPU default); ``"off"`` — the scalarized XLA
-    scan (default off-TPU: interpret-mode Pallas would crawl and the
-    scan is already exact there); ``"interpret"`` — the kernel under the
-    Pallas interpreter (CPU test path: exercises the packed trainer
-    loops through the kernel end-to-end).  Env override:
-    ``MTM_KALMAN_PALLAS = 0 | interpret``.  Callers resolve this
-    OUTSIDE their jitted impls and pass it as a static argument, so
-    changing the env between calls cannot collide with a cached trace."""
-    import os
-
-    v = os.environ.get("MTM_KALMAN_PALLAS", "")
-    if v == "0":
-        return "off"
-    if v == "interpret":
-        return "interpret"
-    return (
-        "compiled" if jax.devices()[0].platform == "tpu" else "off"
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("mode",))
-def _masked_logliks_kalman_impl(
-    params: MixtureParams, z: jax.Array, x: jax.Array, *, mode: str
-) -> jax.Array:
-    from multimodal_trajectory_modeling_tpu.ops import kalman
-
-    if mode != "off":
-        from multimodal_trajectory_modeling_tpu.ops import pallas_kalman
-
-        return pallas_kalman.kalman_masked_logliks_pallas(
-            z, x, params.m, params.S, params.A, params.G, params.H,
-            params.L, interpret=(mode == "interpret"),
-        )
-    return kalman.kalman_masked_logliks(
-        z, x, params.m, params.S, params.A, params.G, params.H, params.L
-    )
-
-
+@jax.jit
 def masked_logliks_kalman(
     params: MixtureParams,
     z: jax.Array,  # (T, n, d) arbitrary per-coordinate NaNs
     x: jax.Array,  # (T, n, l)
-    *,
-    pallas_mode: str | None = None,
 ) -> jax.Array:
     """``(C, n)`` joint log-likelihoods of the observed entries under
     ARBITRARY missingness via the O(T) partial-observation filter
@@ -330,38 +251,28 @@ def masked_logliks_kalman(
     :func:`estep_logliks` when interior missingness rules out the Markov
     suffix factorization and T makes the dense (T(d+l))² joint
     infeasible.  Exact (equal to the dense marginalization in f64,
-    tested; better-conditioned at long T).
+    tested; better-conditioned at long T)."""
+    from multimodal_trajectory_modeling_tpu.ops import kalman
 
-    On TPU the pass runs as the Pallas grid kernel
-    (ops/pallas_kalman.py — same shared step algebra, state in VMEM);
-    elsewhere the XLA scan.  See :func:`_pallas_kalman_mode`."""
-    mode = _pallas_kalman_mode() if pallas_mode is None else pallas_mode
-    return _masked_logliks_kalman_impl(params, z, x, mode=mode)
-
-
-@functools.partial(jax.jit, static_argnames=("mode",))
-def _cdl_masked_kalman_impl(
-    params: MixtureParams, z: jax.Array, x: jax.Array, *, mode: str
-) -> jax.Array:
-    ll = _masked_logliks_kalman_impl(params, z, x, mode=mode)
-    a = assignments_from_logliks(params.pi, ll)
-    picked = jnp.take_along_axis(ll, a[None, :], axis=0)[0]
-    return jnp.sum(jnp.log(params.pi)[a]) + jnp.sum(picked)
+    return kalman.kalman_masked_logliks(
+        z, x, params.m, params.S, params.A, params.G, params.H, params.L
+    )
 
 
+@jax.jit
 def complete_data_loglik_masked_kalman(
     params: MixtureParams,
     z: jax.Array,  # (T, n, d) arbitrary per-coordinate NaNs
     x: jax.Array,  # (T, n, l)
-    *,
-    pallas_mode: str | None = None,
 ) -> jax.Array:
     """Hard-assignment expected complete-data log-likelihood Q with a
     fresh E assignment, evaluated through the exact O(T) masked filter —
     the general-missingness analogue of :func:`complete_data_loglik`
     (reference ``e_complete_data_log_lik``, mixture:579-624)."""
-    mode = _pallas_kalman_mode() if pallas_mode is None else pallas_mode
-    return _cdl_masked_kalman_impl(params, z, x, mode=mode)
+    ll = masked_logliks_kalman(params, z, x)
+    a = assignments_from_logliks(params.pi, ll)
+    picked = jnp.take_along_axis(ll, a[None, :], axis=0)[0]
+    return jnp.sum(jnp.log(params.pi)[a]) + jnp.sum(picked)
 
 
 def assignments_from_logliks(pi: jax.Array, ll: jax.Array) -> jax.Array:
@@ -371,72 +282,18 @@ def assignments_from_logliks(pi: jax.Array, ll: jax.Array) -> jax.Array:
 
 def counts_from_assign(assign: jax.Array, n_clusters: int) -> jax.Array:
     """``bincount(assign, length=C)`` as a compare+sum — identical result,
-    but lowers to a VPU reduction instead of a scatter-add (bincount's
-    scatter costs ~10 ms at n=1e6 on a v5e; this is sub-ms)."""
+    but lowers to a fused reduction instead of a scatter-add."""
     lanes = jnp.arange(n_clusters, dtype=assign.dtype)
     return jnp.sum(
         (assign[:, None] == lanes[None, :]).astype(jnp.int32), axis=0
     )
 
 
-def estep_assign_sorted(
-    params: MixtureParams,
-    v_sorted: jax.Array,
-    patterns: jax.Array,
-    prev_assign: jax.Array,
-    *,
-    sizes: tuple,
-    T: int,
-    interpret: bool = None,
-    bf16: bool = False,
-    v_sorted_t: jax.Array = None,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Fused E-step over a pattern-sorted batch: returns
-    ``(assign, counts, switches)`` directly from the kernel — the
-    (C, n) log-likelihood matrix never touches HBM.  Same assignments as
-    ``assignments_from_logliks(pi, estep_logliks_sorted(...))`` up to
-    floating-point reassociation of the expanded quadratic form
-    (ops/pallas_estep.py:estep_assign_pattern_sorted); ``bf16`` selects
-    the bench-mode bfloat16-operand GEMMs (f32 accumulation).
-
-    Pass ``v_sorted_t`` (the pre-transposed ``(D, n)`` copy of
-    ``v_sorted``) to route the transposed kernel — ~1.8× the row-major
-    kernel on TPU (6.9 ms vs 12.3 ms at n=1e6, C=16, D=80) because the
-    segment-reduction GEMM gets the batch on its lane axis.  Callers
-    should hoist the transpose out of the EM loop."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_estep
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-    means, covs = cluster_joint_moments(params, T)
-    minv, const = pallas_estep.precompute_cluster_pattern_inverses(
-        means, covs, patterns
-    )
-    if v_sorted_t is not None:
-        return pallas_estep.estep_assign_pattern_sorted_t(
-            v_sorted_t,
-            prev_assign,
-            means,
-            minv,
-            const,
-            jnp.log(params.pi),
-            patterns,
-            sizes=sizes,
-            interpret=interpret,
-            bf16=bf16,
-        )
-    return pallas_estep.estep_assign_pattern_sorted(
-        v_sorted,
-        prev_assign,
-        means,
-        minv,
-        const,
-        jnp.log(params.pi),
-        patterns,
-        sizes=sizes,
-        interpret=interpret,
-        bf16=bf16,
-    )
+def _assign_counts_switches(pi, ll, prev_assign):
+    assign = assignments_from_logliks(pi, ll)
+    counts = counts_from_assign(assign, pi.shape[0])
+    switches = jnp.sum(assign != prev_assign.astype(jnp.int32))
+    return assign, counts, switches.astype(jnp.int32)
 
 
 def estep_assign_markov(
@@ -447,46 +304,25 @@ def estep_assign_markov(
     prev_assign: jax.Array,  # (n,) int32
     *,
     T: int,
-    interpret: bool = None,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Fused O(T) Markov-factorized E-step for SUFFIX missingness:
-    ``(assign, counts, switches)`` with log π folded into the kernel's
-    constant column — same assignments as the dense kernels up to f32
-    reassociation (exact in f64), ~6× fewer FLOPs at the benchmark
-    config (ops/pallas_markov.py).  ``z_t``/``x_t`` are iteration
-    -invariant: transpose once, outside the EM loop."""
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
+    """O(T) Markov-factorized E step for SUFFIX missingness:
+    ``(assign, counts, switches)`` from
+    :func:`..ops.markov.markov_suffix_logliks` — same assignments as the
+    dense path up to f32 reassociation (exact in f64)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
-    W1, W2, W3 = mops.markov_cluster_weights_grouped(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )
-    W3 = W3.at[:, -1].add(jnp.log(params.pi))
-    return pallas_markov.markov_assign_suffix(
-        z_t,
-        x_t,
-        lens,
-        prev_assign,
-        W1,
-        W2,
-        W3,
-        T=T,
-        d=d,
-        l=l,
-        interpret=interpret,
-    )
+    n = z_t.shape[1]
+    z = jnp.transpose(z_t.reshape(T, d, n), (0, 2, 1))
+    x = jnp.transpose(x_t.reshape(T, l, n), (0, 2, 1))
+    ll = _suffix_logliks_markov_xla(params, z, x, lens)
+    return _assign_counts_switches(params.pi, ll, prev_assign)
 
 
 def _unpack_markov_em_stats(g: jax.Array, d: int, l: int):
-    """Split the fused kernel's per-cluster feature sums ``g (F, C)`` into
+    """Split the Φ pass's per-cluster feature sums ``g (F, C)`` into
     the transition/measurement :class:`~..ops.regression.RegressionStats`
-    and initial :class:`~..ops.regression.MomentStats` (identical contract
-    to ``pallas_mstep.mstep_stats_gram_sorted``'s outputs, suffix
-    missingness)."""
+    and initial :class:`~..ops.regression.MomentStats` (the statistics
+    :func:`mstep` accumulates, under suffix missingness)."""
     gT = g.T  # (C, F)
     C = gT.shape[0]
     dd = d * d
@@ -528,13 +364,12 @@ def pack_markov_batch(
     d: int,
     l: int,
 ) -> jax.Array:
-    """Pack the transposed batch for the packed fused Markov kernel
-    (``[z_t; x_t; 0-pad]`` per step on 8-aligned sublanes, NaN→0).
-    Iteration-invariant: build once per fit and pass to
-    :func:`emstep_markov` via ``u=``."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    """Pack the transposed batch for the compact Φ build
+    (``[z_t; x_t; 0-pad]`` per step, NaN→0).  Iteration-invariant:
+    build once per fit and pass to :func:`pack_markov_features`."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    return pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
+    return markov_phi.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
 
 
 def pack_markov_features(
@@ -546,34 +381,25 @@ def pack_markov_features(
     l: int,
     dtype=None,
     store_dtype=None,
-    interpret: bool = None,
 ) -> jax.Array:
     """Materialize the per-instance EM feature matrix Φ (Fc_pad, n_pad)
     from the packed batch — one O(T) pass per fit; afterwards every EM
-    iteration reads Φ instead of rebuilding shift products
-    (:func:`emstep_markov` with ``phi=``).  Φ's row count (~1.4× the
-    packed batch's sublanes at the benchmark config) is T-independent,
-    so iteration cost decouples from trajectory length."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    iteration reads Φ (:func:`emstep_markov` with ``phi=``).  Φ's row
+    count is T-independent, so iteration cost decouples from trajectory
+    length."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-    return pallas_markov.markov_materialize_features(
-        u,
-        lens,
-        T=T,
-        d=d,
-        l=l,
-        dtype=dtype,
-        store_dtype=store_dtype,
-        interpret=interpret,
+    return markov_phi.markov_materialize_features(
+        u, lens, T=T, d=d, l=l, dtype=dtype, store_dtype=store_dtype
     )
 
 
 def markov_packed_ok(T: int, d: int, l: int) -> bool:
-    """Whether the packed shift-product kernels fit VMEM at this shape
-    (T·s ≤ 512 with s the 8-aligned step sublanes) — past it the
-    grid-over-T kernels and the canonical feature layout take over."""
+    """Whether Φ takes the compact layout (T·s ≤ 512 with s the 8-row
+    step block of the packed batch).  Past it the shift-product build's
+    (T·s, n) products outgrow the slice-pair builder and the canonical
+    layout (:func:`..ops.markov_phi.markov_materialize_features_longT`)
+    takes over."""
     return T * 8 * ((d + l + 7) // 8) <= 512
 
 
@@ -582,9 +408,9 @@ def _resolve_phi_store(dtype):
     compute ``dtype`` — HOST-level only (reads the environment).
 
     Modes: ``i16`` (default for f32 compute) stores Φ int16-quantized
-    with per-feature scales (:class:`..ops.pallas_markov.PhiQuant` —
-    half the per-iteration HBM stream, quantization folded exactly into
-    the GEMM weights); ``bf16`` the legacy narrow opt-in
+    with per-feature scales (:class:`..ops.markov_phi.PhiQuant` —
+    half the per-iteration read of Φ, quantization folded exactly into
+    the GEMM weights); ``bf16`` the narrow opt-in
     (``MTM_MARKOV_PHI_BF16=1`` still honored); ``wide`` (always the
     default off f32 — f64 parity trajectories stay bit-exact) stores the
     compute dtype.  Returns the ``phi_store`` value the feature routers
@@ -620,86 +446,70 @@ def _markov_features(
     d: int,
     l: int,
     u: jax.Array = None,  # reuse a pre-packed batch if the caller has one
-    precompute: bool = None,  # None → MTM_MARKOV_PRECOMP (default on)
     phi_store="env",  # "env" → MTM_MARKOV_PHI; "i16"/dtype/None explicit
-    interpret: bool = None,
-    longT_always_phi: bool = False,  # multi/pool: no grid fallback
 ) -> tuple[jax.Array, jax.Array, str]:
-    """The one Φ-routing decision shared by every Markov EM trainer:
+    """The one Φ-building decision shared by every Markov EM trainer:
     returns ``(u, phi, phi_layout)`` for :func:`emstep_markov` /
     :func:`emstep_markov_multi`.
 
-    - packed shapes (:func:`markov_packed_ok`): pack the batch (unless
-      given) and, under ``precompute`` (the default), materialize the
-      compact-layout Φ so iterations are Φ-reading GEMMs;
-    - long T with ``precompute``: materialize the canonical-layout Φ
-      with the grid-over-T kernel — the packed batch is never built and
-      iterations are T-independent;
-    - long T without ``precompute``: nothing to build — each iteration
-      runs the grid-over-T kernels from the transposed batch (the
-      single-restart path only; the R-restart kernels have no grid
-      fallback, so multi/pool callers set ``longT_always_phi``).
+    - compact shapes (:func:`markov_packed_ok`): pack the batch (unless
+      given) and materialize the compact-layout Φ;
+    - long T: materialize the canonical-layout Φ; ``u`` is None.
 
-    ``precompute=None`` and ``phi_store="env"`` resolve their env
-    contracts HERE, at host level — callers that jit must resolve first
-    and pass explicit values (a jitted body would freeze the env into
-    the trace).  ``phi_store="i16"`` materializes wide then quantizes to
-    :class:`..ops.pallas_markov.PhiQuant` (the f32 default —
+    ``phi_store="env"`` resolves ``MTM_MARKOV_PHI`` HERE, at host level
+    — callers that jit must resolve first and pass an explicit value (a
+    jitted body would freeze the env into the trace).
+    ``phi_store="i16"`` materializes wide then quantizes to
+    :class:`..ops.markov_phi.PhiQuant` (the f32 default —
     :func:`_resolve_phi_store`)."""
-    import os as _os
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-    if precompute is None:
-        precompute = _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
     if isinstance(phi_store, str) and phi_store == "env":
         phi_store = _resolve_phi_store(z.dtype)
     quantize = isinstance(phi_store, str) and phi_store == "i16"
     store = None if quantize else phi_store
+    n = z.shape[1]
     if markov_packed_ok(T, d, l):
         if u is None:
-            n = z.shape[1]
             z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
             x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
             u = pack_markov_batch(z_tp, x_tp, T=T, d=d, l=l)
-        phi = (
-            pack_markov_features(
-                u,
-                lens,
-                T=T,
-                d=d,
-                l=l,
-                dtype=z.dtype,
-                store_dtype=store,
-                interpret=interpret,
-            )
-            if precompute
-            else None
+        phi = pack_markov_features(
+            u, lens, T=T, d=d, l=l, dtype=z.dtype, store_dtype=store
         )
-        if quantize and phi is not None:
-            phi = pallas_markov.quantize_phi(phi)
-        return u, phi, "compact"
-    if not precompute and not longT_always_phi:
-        return None, None, "canonical"
-    # long T: grid-over-T canonical materialization, no packed batch
-    n = z.shape[1]
-    z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    phi = pallas_markov.markov_materialize_features_longT(
-        z_tp,
-        x_tp,
-        lens,
-        T=T,
-        d=d,
-        l=l,
-        store_dtype=store,
-        interpret=interpret,
-    )
+        layout = "compact"
+    else:
+        u = None
+        z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
+        x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
+        phi = markov_phi.markov_materialize_features_longT(
+            z_tp, x_tp, lens, T=T, d=d, l=l, store_dtype=store
+        )
+        layout = "canonical"
     if quantize:
-        phi = pallas_markov.quantize_phi(phi)
-    return None, phi, "canonical"
+        phi = markov_phi.quantize_phi(phi)
+    return u, phi, layout
+
+
+def _msolve_markov(g, counts, n, d, l, reg_mode, alpha):
+    """Closed-form M step from the Φ pass's statistics ``g (F, C)``."""
+    tstats, mstats, istats = _unpack_markov_em_stats(g, d, l)
+    pi = counts.astype(g.dtype) / n
+    m0, S0 = rops.mean_cov_from_stats(istats)
+    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
+    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
+    return MixtureParams(pi, m0, S0, A, G, H, L)
+
+
+def _em_weights(params: MixtureParams) -> jax.Array:
+    """(C, F) E-score weights over the canonical features, log π folded
+    into the constant column."""
+    from multimodal_trajectory_modeling_tpu.ops import markov as mkops
+
+    Wg = mkops.markov_em_weights(
+        params.m, params.S, params.A, params.G, params.H, params.L
+    )
+    return Wg.at[:, -1].add(jnp.log(params.pi))
 
 
 def emstep_markov(
@@ -713,115 +523,53 @@ def emstep_markov(
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
-    interpret: bool = None,
     u: jax.Array = None,  # (T·s, n) packed batch (pack_markov_batch)
     phi: jax.Array = None,  # (Fc_pad, n_pad) features (pack_markov_features)
     phi_layout: str = "compact",
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
-    """ONE fused EM iteration for suffix missingness: returns
-    ``(new_params, assign, counts, switches)`` from a single kernel pass
-    over the batch — the per-row Markov features feed both the E-score
-    GEMM and the per-cluster M sufficient statistics (the packed
-    shift-product kernel ops/pallas_markov.py:markov_em_fused_packed).
-    ``assign_mode="prev"`` performs the initial M step (statistics under
-    ``prev_assign``, no E).  Equal to estep+mstep of the unfused paths in
-    f64; f32 at reassociation noise.
+    """ONE EM iteration for suffix missingness: returns ``(new_params,
+    assign, counts, switches)`` from one Φ pass
+    (:func:`..ops.markov_phi.markov_em_from_features`) — the
+    per-row Markov features feed both the E-score GEMM and the
+    per-cluster M sufficient statistics.  ``assign_mode="prev"``
+    performs the initial M step (statistics under ``prev_assign``, no
+    E).  Equal to estep+mstep of the dense path in f64; f32 at
+    reassociation noise.
 
-    Pass ``u`` (from :func:`pack_markov_batch`, hoisted out of the EM
-    loop) to skip the per-call packing read of the batch; pass ``phi``
-    (from :func:`pack_markov_features`) to skip the per-iteration feature
-    build entirely — the iteration then reads Φ into one score GEMM and
-    one statistics GEMM (HBM-bound, T-independent; f64-exact vs the
-    packed build)."""
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    Pass ``phi`` (from :func:`pack_markov_features`, hoisted out of the
+    EM loop) — without it the call materializes Φ itself (from ``u`` if
+    given, else from ``z_t``/``x_t``), which costs about one extra
+    iteration."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
     d = params.m.shape[1]
     l = params.H.shape[2]
-    if phi is not None:
-        Wg = mops.markov_em_weights(
-            params.m, params.S, params.A, params.G, params.H, params.L
-        )
-        Wg = Wg.at[:, -1].add(jnp.log(params.pi))
-        assign, counts, switches, g, obj = (
-            pallas_markov.markov_em_from_features(
-                phi,
-                lens,
-                prev_assign,
-                Wg,
-                T=T,
-                d=d,
-                l=l,
-                assign_mode=assign_mode,
-                layout=phi_layout,
-                interpret=interpret,
+    n = lens.shape[0]
+    if phi is None:
+        if u is None and markov_packed_ok(T, d, l):
+            u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
+        if u is not None:
+            phi = pack_markov_features(u, lens, T=T, d=d, l=l, dtype=z_t.dtype)
+            phi_layout = "compact"
+        else:
+            phi = markov_phi.markov_materialize_features_longT(
+                z_t, x_t, lens, T=T, d=d, l=l
             )
-        )
-        tstats, mstats, istats = _unpack_markov_em_stats(g, d, l)
-        n = lens.shape[0]
-        pi = counts.astype(Wg.dtype) / n
-        m0, S0 = rops.mean_cov_from_stats(istats)
-        A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-        H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-        new_params = MixtureParams(pi, m0, S0, A, G, H, L)
-        return new_params, assign, counts, switches
-    # the packed kernel holds the (T·s, Bn) batch block plus its shifted
-    # products in VMEM (block_n auto-shrinks with T·s); beyond this T the
-    # grid-over-T kernels take over
-    packed_ok = T * 8 * ((d + l + 7) // 8) <= 512
-    if packed_ok:
-        Wg = mops.markov_em_weights(
-            params.m, params.S, params.A, params.G, params.H, params.L
-        )
-        Wg = Wg.at[:, -1].add(jnp.log(params.pi))
-        if u is None:
-            u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
-        assign, counts, switches, g, obj = (
-            pallas_markov.markov_em_fused_packed(
-                u,
-                lens,
-                prev_assign,
-                Wg,
-                T=T,
-                d=d,
-                l=l,
-                assign_mode=assign_mode,
-                interpret=interpret,
-            )
-        )
-    else:
-        # grid-over-T kernels: compile time independent of T
-        W1, W2, W3 = mops.markov_cluster_weights_grouped(
-            params.m, params.S, params.A, params.G, params.H, params.L
-        )
-        W3 = W3.at[:, -1].add(jnp.log(params.pi))
-        assign, counts, switches, g, obj = (
-            pallas_markov.markov_em_fused_longT(
-                z_t,
-                x_t,
-                lens,
-                prev_assign,
-                W1,
-                W2,
-                W3,
-                T=T,
-                d=d,
-                l=l,
-                assign_mode=assign_mode,
-                interpret=interpret,
-            )
-        )
-    tstats, mstats, istats = _unpack_markov_em_stats(g, d, l)
-    n = z_t.shape[1]
-    pi = counts.astype(z_t.dtype) / n
-    m0, S0 = rops.mean_cov_from_stats(istats)
-    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-    new_params = MixtureParams(pi, m0, S0, A, G, H, L)
+            phi_layout = "canonical"
+    Wg = _em_weights(params)
+    assign, counts, switches, g, _obj = markov_phi.markov_em_from_features(
+        phi,
+        lens,
+        prev_assign,
+        Wg,
+        T=T,
+        d=d,
+        l=l,
+        assign_mode=assign_mode,
+        layout=phi_layout,
+    )
+    new_params = _msolve_markov(g, counts, n, d, l, reg_mode, alpha)
     return new_params, assign, counts, switches
-
 
 @functools.partial(jax.jit, static_argnames=("reg_mode", "alpha"))
 def emstep_markov_xla(
@@ -834,12 +582,12 @@ def emstep_markov_xla(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
-    """Pure-XLA fused EM iteration via the scan feature builder
-    (ops/markov.py:markov_em_features) — the arbitrary-T twin of
-    :func:`emstep_markov` (whose Pallas kernel statically unrolls the
-    time loop, comfortable to T ≈ 16).  Identical math: E scores and
-    per-cluster M statistics are both linear maps of the same (n, F)
-    feature matrix."""
+    """Plain reference EM iteration over the row-major canonical features
+    (ops/markov.py:markov_em_features) — independent of the Φ layouts
+    and the Φ pass of :func:`emstep_markov`, which tests and the chip
+    smoke compare against it.  Identical math: E scores and per-cluster
+    M statistics are both linear maps of the same (n, F) feature
+    matrix."""
     from multimodal_trajectory_modeling_tpu.ops import markov as mops
 
     C = params.pi.shape[0]
@@ -861,57 +609,8 @@ def emstep_markov_xla(
     counts = jnp.sum(onehot, axis=0).astype(jnp.int32)
     with jax.default_matmul_precision("highest"):
         g = feats.T @ onehot  # (F, C)
-    tstats, mstats, istats = _unpack_markov_em_stats(g, d, l)
-    pi = counts.astype(z.dtype) / n
-    m0, S0 = rops.mean_cov_from_stats(istats)
-    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-    return MixtureParams(pi, m0, S0, A, G, H, L), assign, counts, switches
-
-
-def mstep_sorted(
-    v_sorted: jax.Array,
-    assign: jax.Array,
-    patterns: jax.Array,
-    *,
-    sizes: tuple,
-    T: int,
-    d: int,
-    l: int,
-    n_clusters: int,
-    reg_mode: str = "lstsq",
-    alpha: float = 0.0,
-    interpret: bool = None,
-) -> MixtureParams:
-    """Closed-form M step for a pattern-sorted batch via the whole-row
-    Gram kernel (ops/pallas_mstep.py:mstep_stats_gram_sorted): one fat
-    GEMM per block instead of per-t skinny GEMMs, with π derived from the
-    Gram counts (no separate bincount pass).  Same statistics as
-    :func:`mstep` up to f32/f64 reassociation."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_mstep
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-    tstats, mstats, istats, counts = pallas_mstep.mstep_stats_gram_sorted(
-        v_sorted,
-        assign,
-        patterns,
-        sizes=sizes,
-        T=T,
-        d=d,
-        l=l,
-        n_clusters=n_clusters,
-        # 4096-row blocks amortize the (u, C·u) output accumulation on
-        # TPU; interpret mode keeps 1024 so small test batches don't pay
-        # 4×-padded emulation
-        block_n=1024 if interpret else 4096,
-        interpret=interpret,
-    )
-    pi = counts.astype(v_sorted.dtype) / v_sorted.shape[0]
-    m0, S0 = rops.mean_cov_from_stats(istats)
-    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-    return MixtureParams(pi, m0, S0, A, G, H, L)
+    new_params = _msolve_markov(g, counts, n, d, l, reg_mode, alpha)
+    return new_params, assign, counts, switches
 
 
 @functools.partial(
@@ -933,37 +632,11 @@ def mstep(
     ``reg_mode="lstsq"`` replicates the bare SVD lstsq path,
     ``reg_mode="ridge"`` the sklearn-Ridge path used when ``alpha > 2·eps``.
 
-    ``impl="pallas"`` streams the batch once through the fused
-    sufficient-statistics kernel (ops/pallas_mstep.py); ``impl="xla"`` uses
-    time-batched einsums; ``impl="gram"`` fuses each stat group into a
-    single Gram-matrix einsum (fastest XLA path on TPU — see
-    ops/regression.py:weighted_regression_stats_gram; equal to "xla" up to
-    f32 reassociation).  Identical results in f64.
+    ``impl="xla"`` uses time-batched einsums; ``impl="gram"`` fuses each
+    stat group into a single Gram-matrix einsum
+    (ops/regression.py:weighted_regression_stats_gram; equal to "xla" up
+    to f32 reassociation).  Identical results in f64.
     """
-    if impl == "pallas":
-        from multimodal_trajectory_modeling_tpu.ops import pallas_mstep
-
-        interpret = jax.devices()[0].platform != "tpu"
-        T, n, d = z.shape
-        l = x.shape[-1]
-        stats = pallas_mstep.mstep_stats_pallas(
-            pack_joint(z, x),
-            assign,
-            T=T,
-            d=d,
-            l=l,
-            n_clusters=n_clusters,
-            interpret=interpret,
-        )
-        tstats, mstats, istats = pallas_mstep.unpack_mstep_stats(
-            stats, d, l, n_clusters
-        )
-        pi = counts_from_assign(assign, n_clusters).astype(z.dtype) / n
-        m0, S0 = rops.mean_cov_from_stats(istats)
-        A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-        H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-        return MixtureParams(pi, m0, S0, A, G, H, L)
-
     dtype = z.dtype
     W = jax.nn.one_hot(assign, n_clusters, dtype=dtype)  # (n, C)
     stats_fn = (
@@ -1062,7 +735,7 @@ def model_loglik(
     )
 
 
-@functools.partial(jax.jit, static_argnames=("T", "interpret"))
+@functools.partial(jax.jit, static_argnames=("T",))
 def complete_data_loglik_markov(
     params: MixtureParams,
     z_t: jax.Array,  # (T·d, n) transposed latent batch
@@ -1070,58 +743,32 @@ def complete_data_loglik_markov(
     lens: jax.Array,  # (n,) int32
     *,
     T: int,
-    interpret: bool = None,
 ) -> jax.Array:
-    """:func:`complete_data_loglik` through the fused Markov kernel —
-    the kernel's ``Σ_i max_c scores`` output IS the hard-assignment
-    complete-data objective under a fresh E (reference
-    ``e_complete_data_log_lik``, mixture:579-624); one kernel pass at
-    n=1e6 instead of a full dense E evaluation.  Routes the PACKED
-    shift-product kernel when its VMEM gate admits T (bitwise-equal to
-    the R-restart packed kernel, so sequential and fused-chunk
-    multistart sweeps rank candidates identically); the grid-over-T
-    kernel (T-independent Mosaic compile) covers larger T."""
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
+    """:func:`complete_data_loglik` through the Φ pass — its ``Σ_i
+    max_c scores`` output IS the hard-assignment complete-data objective
+    under a fresh E (reference ``e_complete_data_log_lik``,
+    mixture:579-624).  Builds Φ with the same routing as the trainers,
+    so sequential and pooled multistart sweeps rank candidates
+    identically (wide storage: the objective is the selection key)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
-    Wg = mops.markov_em_weights(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )
-    Wg = Wg.at[:, -1].add(jnp.log(params.pi))
     n = z_t.shape[1]
-    if T * 8 * ((d + l + 7) // 8) <= 512:  # packed-kernel VMEM gate
-        u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
-        _a, _c, _w, _g, obj = pallas_markov.markov_em_fused_packed(
-            u,
-            lens,
-            jnp.zeros((n,), jnp.int32),
-            Wg,
-            T=T,
-            d=d,
-            l=l,
-            interpret=interpret,
-        )
-        return obj
-    W1, W2, W3 = mops.markov_cluster_weights_grouped(
-        params.m, params.S, params.A, params.G, params.H, params.L
+    z = jnp.transpose(z_t.reshape(T, d, n), (0, 2, 1))
+    x = jnp.transpose(x_t.reshape(T, l, n), (0, 2, 1))
+    _u, phi, layout = _markov_features(
+        z, x, lens, T=T, d=d, l=l, phi_store=None
     )
-    W3 = W3.at[:, -1].add(jnp.log(params.pi))
-    _a, _c, _w, _g, obj = pallas_markov.markov_em_fused_longT(
-        z_t,
-        x_t,
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
+
+    _a, _c, _w, _g, obj = markov_phi.markov_em_from_features(
+        phi,
         lens,
         jnp.zeros((n,), jnp.int32),
-        W1,
-        W2,
-        W3,
+        _em_weights(params),
         T=T,
         d=d,
         l=l,
-        interpret=interpret,
+        layout=layout,
     )
     return obj
 
@@ -1138,70 +785,19 @@ def _suffix_logliks_markov_xla(
     return mops.markov_suffix_logliks(z, x, lens, W)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _suffix_logliks_markov_phi(
-    params: MixtureParams, z, x, lens, *, interpret: bool
-) -> jax.Array:
-    from multimodal_trajectory_modeling_tpu.ops import (
-        markov as mops,
-        pallas_markov,
-    )
-
-    T, n, d = z.shape
-    l = x.shape[-1]
-    z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    phi = pallas_markov.markov_materialize_features_longT(
-        z_tp, x_tp, lens, T=T, d=d, l=l, interpret=interpret
-    )
-    Wg = mops.markov_em_weights(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )
-    F_pad = phi.shape[0]
-    wc = jnp.zeros((Wg.shape[0], F_pad), Wg.dtype)
-    wc = wc.at[:, : Wg.shape[1]].set(Wg)  # canonical rows are 0..F-1
-    # full-precision GEMM: the TPU default is bf16 multiplies, which at
-    # |ll| ~ 10³ costs whole nats; the (C, F)·(F, n) product is tiny
-    # next to the materialization read, so HIGHEST is free
-    ll = jax.lax.dot_general(
-        wc,
-        phi,
-        (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    return ll[:, :n]
-
-
 def suffix_logliks_markov(
     params: MixtureParams,
     z: jax.Array,  # (T, n, d) NaN-suffix-padded
     x: jax.Array,  # (T, n, l)
     lens: jax.Array,  # (n,) int32 observed prefix lengths (1..T)
-    *,
-    via_phi: bool = None,
 ) -> jax.Array:
     """``(C, n)`` joint log-likelihoods under PURE-SUFFIX missingness in
     O(T) via the Markov factorization — the long-T inference route when
     the per-row patterns are variable lengths (reference inference
     methods take the dense joint; its (T(d+l))² covariance is infeasible
     past T(d+l) ≈ 512).  Equals the dense masked marginal exactly
-    (ops/markov.py contract, f64-tested); ~6-100× the masked-filter
-    evaluation at T=512 since the factorized densities are GEMM-shaped
-    instead of a sequential per-step recursion.
-
-    ``via_phi`` (default: on TPU) evaluates through the grid-over-T
-    canonical feature materialization plus one weight GEMM — the
-    T-INDEPENDENT Mosaic compile; the XLA slice-pair formulation
-    (default off-TPU, where it compiles in seconds) was measured at
-    ~10 min of remote compile at T=300.  Both routes are f64-identical
-    (tested)."""
-    if via_phi is None:
-        via_phi = jax.devices()[0].platform == "tpu"
-    if via_phi:
-        interpret = jax.devices()[0].platform not in ("tpu",)
-        return _suffix_logliks_markov_phi(
-            params, z, x, lens, interpret=interpret
-        )
+    (ops/markov.py contract, f64-tested); the factorized densities are
+    GEMM-shaped instead of a sequential per-step recursion."""
     return _suffix_logliks_markov_xla(params, z, x, lens)
 
 
@@ -1241,8 +837,8 @@ def _em_termination(switches, counts, status_else, *, min_members):
     switches first, mixture:1341-1356), ``advance`` = take the new M
     params and keep running.  ``status`` nests CONVERGED over
     EMPTY_CLUSTER over ``status_else`` (the caller's keep-running
-    value).  One definition keeps the five trainer loops — dense,
-    sorted, Markov, multi-restart, pool window — in exact agreement."""
+    value).  One definition keeps the trainer loops — dense, masked
+    filter, Markov, multi-restart, pool window — in exact agreement."""
     converged = switches == 0
     empty = (~converged) & (jnp.min(counts, axis=-1) <= min_members)
     advance = (~converged) & (~empty)
@@ -1326,6 +922,10 @@ def train_em(
     return params_f, assign_f, iters, status
 
 
+@functools.partial(
+    jax.jit,
+    static_argnames=("n_steps", "reg_mode", "alpha", "min_members"),
+)
 def train_em_masked_kalman(
     params0: MixtureParams,
     assign0: jax.Array,
@@ -1336,7 +936,6 @@ def train_em_masked_kalman(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    pallas_mode: str | None = None,
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
     """One full EM run under ARBITRARY per-coordinate missingness with an
     O(T) E step — the long-T trainer for interior missingness, where the
@@ -1345,56 +944,21 @@ def train_em_masked_kalman(
     and the suffix-Markov factorization does not apply.
 
     E step: exact partial-observation Kalman densities
-    (:func:`ops.kalman.kalman_masked_logliks`, on TPU the Pallas grid
-    kernel — equal to the dense drop-rows/cols marginal to ~1e-12 in
-    f64).  M step: the same masked sufficient-statistics path every
-    other trainer uses (:func:`mstep` — any-NaN row pairs dropped per
-    factor, reference regress semantics).  Status protocol, init-abort
-    guard and stop conditions are identical to :func:`train_em`
-    (reference mixture:1310-1366); on suffix-only missingness it
-    reproduces ``train_em``'s trajectory exactly (the filter marginal
-    equals the joint marginal).
+    (:func:`ops.kalman.kalman_masked_logliks` — equal to the dense
+    drop-rows/cols marginal to ~1e-12 in f64).  M step: the same masked
+    sufficient-statistics path every other trainer uses (:func:`mstep` —
+    any-NaN row pairs dropped per factor, reference regress semantics).
+    Status protocol, init-abort guard and stop conditions are identical
+    to :func:`train_em` (reference mixture:1310-1366); on suffix-only
+    missingness it reproduces ``train_em``'s trajectory exactly (the
+    filter marginal equals the joint marginal).
 
     Returns ``(params, assign, n_iterations, status)``.
     """
-    mode = _pallas_kalman_mode() if pallas_mode is None else pallas_mode
-    return _train_em_masked_kalman_impl(
-        params0, assign0, z, x, n_steps=n_steps, reg_mode=reg_mode,
-        alpha=alpha, min_members=min_members, pallas_mode=mode,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_steps", "reg_mode", "alpha", "min_members", "pallas_mode",
-    ),
-)
-def _train_em_masked_kalman_impl(
-    params0: MixtureParams,
-    assign0: jax.Array,
-    z: jax.Array,
-    x: jax.Array,
-    *,
-    n_steps: int,
-    reg_mode: str,
-    alpha: float,
-    min_members: int,
-    pallas_mode: str,
-) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
     from multimodal_trajectory_modeling_tpu.ops import kalman
 
     C = params0.pi.shape[0]
-    n = z.shape[1]
     assign0 = assign0.astype(jnp.int32)
-
-    use_pallas = pallas_mode != "off"
-    if use_pallas:
-        # pack ONCE outside the loop — a per-iteration pad would copy
-        # the whole batch every EM step
-        from multimodal_trajectory_modeling_tpu.ops import pallas_kalman
-
-        z4, x4, _tc, _bn = pallas_kalman.pack_masked_kalman(z, x, C)
 
     counts0 = counts_from_assign(assign0, C)
     init_abort = jnp.min(counts0) <= min_members
@@ -1411,19 +975,11 @@ def _train_em_masked_kalman_impl(
 
     def body(state):
         params, assign, i, status = state
-        if use_pallas:
-            ll = pallas_kalman.kalman_masked_logliks_packed(
-                z4, x4,
-                params.m, params.S, params.A, params.G, params.H,
-                params.L, t_chunk=_tc, block_cols=_bn,
-                interpret=(pallas_mode == "interpret"),
-            )[:, :n]
-        else:
-            ll = kalman.kalman_masked_logliks(
-                z, x,
-                params.m, params.S, params.A, params.G, params.H,
-                params.L,
-            )
+        ll = kalman.kalman_masked_logliks(
+            z, x,
+            params.m, params.S, params.A, params.G, params.H,
+            params.L,
+        )
         new_assign = assignments_from_logliks(params.pi, ll)
         switches = jnp.sum(new_assign != assign)
         counts = counts_from_assign(new_assign, C)
@@ -1451,19 +1007,14 @@ def emstep_masked_kalman_multi(
     force_prev: jax.Array = None,  # (R,) — per-slot prev mode
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
-    pallas_mode: str = "off",
-    z4: jax.Array = None,  # packed batch (pack_masked_kalman) — shared
-    x4: jax.Array = None,
-    t_chunk: int = 0,
-    block_cols: int = 0,
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
     """ONE masked-filter EM iteration for R independent restarts over
-    the SAME batch: the R·C parameter rows ride the filter kernel's
-    cluster loop as one ``(R·C, n)`` density pass (one batch stream for
-    the whole chunk), and the M statistics for every restart contract in
-    one read via :func:`mstep_multi`.  Each restart equals a separate
-    :func:`train_em_masked_kalman` iteration (f64).  ``force_prev``
-    rows take their initial M step (assignment kept at ``prev``)."""
+    the SAME batch: the R·C parameter rows run through the filter as one
+    ``(R·C, n)`` density pass, and the M statistics for every restart
+    contract in one read via :func:`mstep_multi`.  Each restart equals a
+    separate :func:`train_em_masked_kalman` iteration (f64).
+    ``force_prev`` rows take their initial M step (assignment kept at
+    ``prev``)."""
     from multimodal_trajectory_modeling_tpu.ops import kalman
 
     R, C = params.pi.shape
@@ -1472,37 +1023,16 @@ def emstep_masked_kalman_multi(
     def flat(a):
         return a.reshape((R * C,) + a.shape[2:])
 
-    if pallas_mode != "off":
-        from multimodal_trajectory_modeling_tpu.ops import pallas_kalman
-
-        if z4 is None:
-            z4, x4, t_chunk, block_cols = pallas_kalman.pack_masked_kalman(
-                z, x, R * C
-            )
-        ll = pallas_kalman.kalman_masked_logliks_packed(
-            z4,
-            x4,
-            flat(params.m),
-            flat(params.S),
-            flat(params.A),
-            flat(params.G),
-            flat(params.H),
-            flat(params.L),
-            t_chunk=t_chunk,
-            block_cols=block_cols,
-            interpret=(pallas_mode == "interpret"),
-        )[:, :n]
-    else:
-        ll = kalman.kalman_masked_logliks(
-            z,
-            x,
-            flat(params.m),
-            flat(params.S),
-            flat(params.A),
-            flat(params.G),
-            flat(params.H),
-            flat(params.L),
-        )
+    ll = kalman.kalman_masked_logliks(
+        z,
+        x,
+        flat(params.m),
+        flat(params.S),
+        flat(params.A),
+        flat(params.G),
+        flat(params.H),
+        flat(params.L),
+    )
     ll = ll.reshape(R, C, n)
     e_assign = jax.vmap(assignments_from_logliks)(params.pi, ll)
     if force_prev is not None:
@@ -1521,16 +1051,7 @@ def emstep_masked_kalman_multi(
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "K",
-        "n_steps",
-        "reg_mode",
-        "alpha",
-        "min_members",
-        "pallas_mode",
-        "t_chunk",
-        "block_cols",
-    ),
+    static_argnames=("K", "n_steps", "reg_mode", "alpha", "min_members"),
 )
 def _pool_window_masked_kalman(
     params,  # stacked (R-leading) MixtureParams
@@ -1540,17 +1061,12 @@ def _pool_window_masked_kalman(
     force,  # (R,) int32 — 1 ⇒ slot's next pass is its initial M step
     z,  # (T, n, d)
     x,  # (T, n, l)
-    z4,  # packed batch (None when pallas_mode == "off")
-    x4,
     *,
     K: int,
     n_steps: int,
     reg_mode: str,
     alpha: float,
     min_members: int,
-    pallas_mode: str,
-    t_chunk: int,
-    block_cols: int,
 ):
     """K fused multi-restart masked-filter EM iterations in ONE
     dispatch — the :func:`_pool_window` protocol (per-slot freezing,
@@ -1566,11 +1082,6 @@ def _pool_window_masked_kalman(
             force_prev=force,
             reg_mode=reg_mode,
             alpha=alpha,
-            pallas_mode=pallas_mode,
-            z4=z4,
-            x4=x4,
-            t_chunk=t_chunk,
-            block_cols=block_cols,
         )
 
     return _pool_window_protocol(
@@ -1594,27 +1105,18 @@ def train_em_masked_kalman_pool(
     alpha: float = 0.0,
     min_members: int = 3,
     sync_every: int = 8,
-    pallas_mode: str | None = None,
 ) -> list:
     """Slot-pool multistart for ARBITRARY per-coordinate missingness —
     :func:`train_em_markov_pool`'s scheduler driving the masked-filter
-    trainer: R slots share one filter-kernel density pass (R·C
-    parameter rows through the cluster loop) and one statistics read
-    per iteration, with slots refilled the moment an occupant
-    terminates.  Per-candidate results equal standalone
-    :func:`train_em_masked_kalman` runs (f64), in candidate order.
-    Returns ``[(params, assign (n,), iters, status), ...]``."""
+    trainer: R slots share one filter density pass (R·C parameter rows)
+    and one statistics read per iteration, with slots refilled the
+    moment an occupant terminates.  Per-candidate results equal
+    standalone :func:`train_em_masked_kalman` runs (f64), in candidate
+    order.  Returns ``[(params, assign (n,), iters, status), ...]``."""
     n = z.shape[1]
     C = params_list[0].pi.shape[0]
     R = max(1, min(R, len(params_list)))
     K = max(1, int(sync_every))
-    mode = _pallas_kalman_mode() if pallas_mode is None else pallas_mode
-    z4 = x4 = None
-    tc = bn = 0
-    if mode != "off":
-        from multimodal_trajectory_modeling_tpu.ops import pallas_kalman
-
-        z4, x4, tc, bn = pallas_kalman.pack_masked_kalman(z, x, C * R)
 
     def window(stack, assigns, status, iters, force):
         return _pool_window_masked_kalman(
@@ -1625,16 +1127,11 @@ def train_em_masked_kalman_pool(
             force,
             z,
             x,
-            z4,
-            x4,
             K=K,
             n_steps=n_steps,
             reg_mode=reg_mode,
             alpha=float(alpha),
             min_members=min_members,
-            pallas_mode=mode,
-            t_chunk=tc,
-            block_cols=bn,
         )
 
     return _run_slot_pool(
@@ -1650,107 +1147,6 @@ def train_em_masked_kalman_pool(
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "sizes",
-        "n_steps",
-        "reg_mode",
-        "alpha",
-        "min_members",
-    ),
-)
-def train_em_sorted(
-    params0: MixtureParams,
-    assign0: jax.Array,
-    z: jax.Array,
-    x: jax.Array,
-    v: jax.Array,
-    patterns: jax.Array,
-    *,
-    sizes: tuple,
-    n_steps: int = 1000,
-    reg_mode: str = "lstsq",
-    alpha: float = 0.0,
-    min_members: int = 3,
-) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
-    """:func:`train_em` over a batch PRE-SORTED by missingness pattern —
-    the production TPU path: single-pattern fused E-step segments
-    (ops/pallas_estep.py) + the wide Khatri–Rao M-step kernel
-    (ops/pallas_mstep.py), ~2.5× :func:`train_em` per iteration at n=1e6
-    on one v5e chip.
-
-    ``z/x/v`` rows must all carry the same pattern-ascending permutation
-    (``np.argsort(pattern_id, kind="stable")``) and ``sizes`` its static
-    per-pattern counts; the returned assignment is in sorted order — apply
-    the inverse permutation to recover input order.  Produces the same
-    training trajectory as :func:`train_em` up to floating-point
-    reassociation (the fused kernels expand the quadratic form and batch
-    all time steps into one GEMM); assignments agree exactly unless a
-    per-row argmax is tied at reassociation noise.
-    """
-    T = z.shape[0]
-    d = z.shape[-1]
-    l = x.shape[-1]
-    C = params0.pi.shape[0]
-    assign0 = assign0.astype(jnp.int32)
-    interpret = jax.devices()[0].platform not in ("tpu",)
-
-    counts0 = counts_from_assign(assign0, C)
-    init_abort = jnp.min(counts0) <= min_members
-
-    # loop-invariant transposed copy for the fast E kernel (hoisted: the
-    # while_loop closure captures it, so the transpose runs once)
-    v_t = jnp.swapaxes(v, 0, 1)
-
-    def _mstep(a):
-        return mstep_sorted(
-            v,
-            a,
-            patterns,
-            sizes=sizes,
-            T=T,
-            d=d,
-            l=l,
-            n_clusters=C,
-            reg_mode=reg_mode,
-            alpha=alpha,
-            interpret=interpret,
-        )
-
-    params_m = _mstep(assign0)
-    params_start = _tree_select(init_abort, params0, params_m)
-    status0 = jnp.where(init_abort, STATUS_INIT_ABORT, STATUS_RUNNING)
-
-    def cond(state):
-        _, _, i, status = state
-        return (status == STATUS_RUNNING) & (i < n_steps)
-
-    def body(state):
-        params, assign, i, status = state
-        new_assign, counts, switches = estep_assign_sorted(
-            params,
-            v,
-            patterns,
-            assign,
-            sizes=sizes,
-            T=T,
-            interpret=interpret,
-            v_sorted_t=v_t,
-        )
-        _conv, _empty, run_m, status_out = _em_termination(
-            switches, counts, STATUS_RUNNING, min_members=min_members
-        )
-        new_params = _mstep(new_assign)
-        params_out = _tree_select(run_m, new_params, params)
-        return (params_out, new_assign, i + 1, status_out)
-
-    params_f, assign_f, iters, status = jax.lax.while_loop(
-        cond, body, (params_start, assign0, jnp.int32(0), status0)
-    )
-    return params_f, assign_f, iters, status
-
-
 def train_em_markov(
     params0: MixtureParams,
     assign0: jax.Array,
@@ -1762,35 +1158,25 @@ def train_em_markov(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    precompute: bool = None,
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
-    """:func:`train_em` for SUFFIX missingness via the fused Markov EM
-    kernel — ONE kernel pass per iteration computes the E assignment and
-    the per-cluster M sufficient statistics from a single read of the
-    batch (ops/pallas_markov.py).  No pattern sorting needed (per-row
-    lengths carry the validity); O(T) in time like the whole
-    :mod:`..ops.markov` family.  Same training trajectory and status
-    semantics as :func:`train_em`/:func:`train_em_sorted` (f64-identical;
-    f32 up to reassociation).
+    """:func:`train_em` for SUFFIX missingness via the Markov
+    factorization: the per-instance feature matrix Φ is materialized once
+    before the loop (:func:`_markov_features`), and each iteration is ONE
+    Φ pass that computes the E assignment and the per-cluster M
+    sufficient statistics (ops/markov_phi.py).  Per-row lengths carry
+    the validity; O(T) in time like the whole :mod:`..ops.markov`
+    family.  Same training trajectory and status semantics as
+    :func:`train_em` (f64-identical; f32 up to reassociation).
 
-    ``precompute`` (default on, ``MTM_MARKOV_PRECOMP=0`` opts out)
-    materializes the per-instance feature matrix Φ once before the loop
-    (:func:`pack_markov_features`, ~1.4× the packed batch's memory) so
-    each iteration is a Φ-reading GEMM kernel instead of a shift-product
-    rebuild — f64-identical trajectories either way.  Φ storage
-    (``MTM_MARKOV_PHI`` — :func:`_resolve_phi_store`) defaults to
-    int16-quantized for f32 batches (half the per-iteration HBM stream;
-    per-feature scales folded exactly into the GEMM weights, so the only
-    approximation is the one storage rounding ≈ 1.5e-5 of each feature
-    row's max) and to exact wide storage for f64 (parity trajectories
-    stay bit-identical).  Env toggles are resolved here at call time and
-    enter the jitted impl as static arguments — they are never read
-    inside a trace, so flipping them between calls takes effect (at the
+    Φ storage (``MTM_MARKOV_PHI`` — :func:`_resolve_phi_store`) defaults
+    to int16-quantized for f32 batches (half the per-iteration read of
+    Φ; per-feature scales folded exactly into the GEMM weights, so the
+    only approximation is the one storage rounding ≈ 1.5e-5 of each
+    feature row's max) and to exact wide storage for f64 (parity
+    trajectories stay bit-identical).  The env is resolved here at call
+    time and enters the jitted impl as a static argument — never read
+    inside a trace, so flipping it between calls takes effect (at the
     cost of one retrace)."""
-    import os as _os
-
-    if precompute is None:
-        precompute = _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
     store = _resolve_phi_store(z.dtype)
     phi_mode = (
         "i16"
@@ -1807,9 +1193,11 @@ def train_em_markov(
         reg_mode=reg_mode,
         alpha=alpha,
         min_members=min_members,
-        precompute=bool(precompute),
         phi_mode=phi_mode,
     )
+
+
+_PHI_STORE = {"i16": "i16", "bf16": jnp.bfloat16, "wide": None}
 
 
 @functools.partial(
@@ -1819,7 +1207,6 @@ def train_em_markov(
         "reg_mode",
         "alpha",
         "min_members",
-        "precompute",
         "phi_mode",
     ),
 )
@@ -1834,45 +1221,19 @@ def _train_em_markov_impl(
     reg_mode: str,
     alpha: float,
     min_members: int,
-    precompute: bool,
     phi_mode: str,
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
-    """One XLA program for the whole fit: transposes, packing, optional
-    Φ materialization and the EM while_loop trace together, so XLA
-    liveness frees the packed batch once Φ exists (n=1e7 fits one
-    chip)."""
+    """One XLA program for the whole fit: transposes, packing, Φ
+    materialization and the EM while_loop trace together, so XLA
+    liveness frees the packed batch once Φ exists."""
     T, n, d = z.shape
     l = x.shape[-1]
     C = params0.pi.shape[0]
     assign0 = assign0.astype(jnp.int32)
-    interpret = jax.devices()[0].platform not in ("tpu",)
 
-    # iteration-invariant transposed + packed copies (computed once here,
-    # outside the while_loop); the Φ routing — packed vs grid-over-T
-    # materialization vs none — is the shared _markov_features decision
-    z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    packed_ok = markov_packed_ok(T, d, l)
-    u = (
-        pack_markov_batch(z_tp, x_tp, T=T, d=d, l=l)
-        if packed_ok
-        else None
+    _u, phi, phi_layout = _markov_features(
+        z, x, lens, T=T, d=d, l=l, phi_store=_PHI_STORE[phi_mode]
     )
-    u_f, phi, phi_layout = _markov_features(
-        z,
-        x,
-        lens,
-        T=T,
-        d=d,
-        l=l,
-        u=u,
-        precompute=precompute,
-        phi_store={"i16": "i16", "bf16": jnp.bfloat16, "wide": None}[
-            phi_mode
-        ],
-        interpret=interpret,
-    )
-    u = u_f if u_f is not None else u
 
     counts0 = counts_from_assign(assign0, C)
     init_abort = jnp.min(counts0) <= min_members
@@ -1880,16 +1241,14 @@ def _train_em_markov_impl(
     def _emstep(params, prev, mode):
         return emstep_markov(
             params,
-            z_tp,
-            x_tp,
+            None,
+            None,
             lens,
             prev,
             T=T,
             assign_mode=mode,
             reg_mode=reg_mode,
             alpha=alpha,
-            interpret=interpret,
-            u=u,
             phi=phi,
             phi_layout=phi_layout,
         )
@@ -1919,48 +1278,28 @@ def _train_em_markov_impl(
     return params_f, assign_f, iters, status
 
 
-@functools.partial(
-    jax.jit, static_argnames=("T", "d", "l", "store", "interpret")
-)
-def _ooc_featurize(z_c, x_c, lens_c, *, T, d, l, store, interpret):
+@functools.partial(jax.jit, static_argnames=("T", "d", "l", "store"))
+def _ooc_featurize(z_c, x_c, lens_c, *, T, d, l, store):
     """Φ for ONE instance chunk — the packed batch and transposed
     intermediates are freed by XLA liveness inside this single program,
     so device residency peaks at the chunk's Φ plus its raw batch."""
     _, phi, _ = _markov_features(
-        z_c,
-        x_c,
-        lens_c,
-        T=T,
-        d=d,
-        l=l,
-        precompute=True,
-        phi_store=store,
-        interpret=interpret,
-        longT_always_phi=True,
+        z_c, x_c, lens_c, T=T, d=d, l=l, phi_store=store
     )
     return phi
 
 
-@jax.jit
-def _ooc_weights(params: MixtureParams) -> jax.Array:
-    from multimodal_trajectory_modeling_tpu.ops import markov as mkops
-
-    Wg = mkops.markov_em_weights(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )
-    return Wg.at[:, -1].add(jnp.log(params.pi))
+_ooc_weights = jax.jit(_em_weights)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("T", "d", "l", "assign_mode", "layout", "interpret"),
+    static_argnames=("T", "d", "l", "assign_mode", "layout"),
 )
-def _ooc_chunk_step(
-    phi, lens_c, prev_c, Wg, *, T, d, l, assign_mode, layout, interpret
-):
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+def _ooc_chunk_step(phi, lens_c, prev_c, Wg, *, T, d, l, assign_mode, layout):
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    return pallas_markov.markov_em_from_features(
+    return markov_phi.markov_em_from_features(
         phi,
         lens_c,
         prev_c,
@@ -1970,7 +1309,6 @@ def _ooc_chunk_step(
         l=l,
         assign_mode=assign_mode,
         layout=layout,
-        interpret=interpret,
     )
 
 
@@ -1978,12 +1316,9 @@ def _ooc_chunk_step(
     jax.jit, static_argnames=("d", "l", "reg_mode", "alpha")
 )
 def _ooc_msolve(g, counts, n_total, *, d, l, reg_mode, alpha):
-    tstats, mstats, istats = _unpack_markov_em_stats(g, d, l)
-    pi = counts.astype(g.dtype) / n_total.astype(g.dtype)
-    m0, S0 = rops.mean_cov_from_stats(istats)
-    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-    return MixtureParams(pi, m0, S0, A, G, H, L)
+    return _msolve_markov(
+        g, counts, n_total.astype(g.dtype), d, l, reg_mode, alpha
+    )
 
 
 def train_em_markov_outofcore(
@@ -2034,7 +1369,6 @@ def train_em_markov_outofcore(
     dtype = jnp.asarray(z[:1, :1]).dtype
     if isinstance(phi_store, str) and phi_store == "env":
         phi_store = _resolve_phi_store(dtype)
-    interpret = jax.devices()[0].platform not in ("tpu",)
     layout = "compact" if markov_packed_ok(T, d, l) else "canonical"
     lens_np = np.asarray(lens, np.int32)
     assign0_np = np.asarray(assign0, np.int32)
@@ -2055,7 +1389,6 @@ def train_em_markov_outofcore(
             d=d,
             l=l,
             store=phi_store,
-            interpret=interpret,
         )
         # device_get maps over pytrees — PhiQuant chunks (int16 payload
         # + scales) land on host exactly like plain Φ arrays do
@@ -2106,7 +1439,6 @@ def train_em_markov_outofcore(
                 l=l,
                 assign_mode=mode,
                 layout=layout,
-                interpret=interpret,
             )
             del phi_c, lens_c, prev_c  # freed once the kernel consumes them
             assign_pending[i] = a
@@ -2173,86 +1505,53 @@ def emstep_markov_multi(
     params: MixtureParams,  # leading R axis on every leaf
     lens: jax.Array,  # (n,) int32 — shared across restarts
     prev_assign: jax.Array,  # (R, n) int32
-    u: jax.Array,  # (T·s, n) packed batch (pack_markov_batch) — shared
+    u: jax.Array,  # (T·s, n) packed batch (pack_markov_batch) — or None
     *,
     T: int,
     assign_mode: str = "argmax",
     force_prev: jax.Array = None,  # (R,) — per-slot prev mode
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
-    interpret: bool = None,
     phi: jax.Array = None,  # (Fc_pad, n_pad) features (pack_markov_features)
     phi_layout: str = "compact",
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array, jax.Array]:
-    """ONE fused EM iteration for R independent restarts over the SAME
-    batch (R-restart packed kernel
-    ops/pallas_markov.py:markov_em_fused_packed_multi): the batch read
-    and the parameter-independent feature build are paid once, and the
-    score/stat GEMMs run at C·R rows.  Returns ``(new_params, assign
-    (R, n), counts (R, C), switches (R,), objectives (R,))``; each
-    restart equals a separate :func:`emstep_markov` call exactly (the
-    per-row dot products are unchanged).  The batch must be pre-packed
-    (``u``) — multistart hoists it once for the whole sweep.
-    ``force_prev`` puts individual slots in prev mode for this pass
-    (a pool-scheduler insertion's initial M step — see
-    :func:`train_em_markov_pool`).  Pass ``phi``
-    (:func:`pack_markov_features`) to drive the iteration from the
-    materialized feature matrix instead — no per-iteration build, and
-    both GEMMs contract over the compact rows.  ``phi_layout`` names
-    Φ's row order (``"canonical"`` for the long-T grid materializer,
-    whose iterations this is the ONLY multi-restart route for — the
-    packed kernel's ACC build caps at T·s ≤ 512 of VMEM)."""
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    """ONE EM iteration for R independent restarts over the SAME batch
+    (:func:`..ops.markov_phi.markov_em_from_features_multi`): one read
+    of Φ feeds R·C score rows and R·C statistics columns.  Returns
+    ``(new_params, assign (R, n), counts (R, C), switches (R,),
+    objectives (R,))``; each restart equals a separate
+    :func:`emstep_markov` call up to reassociation of the GEMMs (exact
+    in f64).  ``force_prev`` puts individual slots in prev mode for this
+    pass (a pool-scheduler insertion's initial M step — see
+    :func:`train_em_markov_pool`).  Pass the hoisted ``phi``
+    (``phi_layout`` names its row order); without it Φ is materialized
+    from the packed batch ``u`` on every call."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
     d = params.m.shape[2]
     l = params.H.shape[3]
     n = lens.shape[0]
-    Wg = jax.vmap(mops.markov_em_weights)(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )  # (R, C, F)
-    Wg = Wg.at[:, :, -1].add(jnp.log(params.pi))
-    if phi is not None:
-        assign, counts, switches, g, obj = (
-            pallas_markov.markov_em_from_features_multi(
-                phi,
-                lens,
-                prev_assign,
-                Wg,
-                T=T,
-                d=d,
-                l=l,
-                assign_mode=assign_mode,
-                force_prev=force_prev,
-                layout=phi_layout,
-                interpret=interpret,
-            )
+    if phi is None:
+        phi = pack_markov_features(u, lens, T=T, d=d, l=l)
+        phi_layout = "compact"
+    Wg = jax.vmap(_em_weights)(params)  # (R, C, F)
+    assign, counts, switches, g, obj = (
+        markov_phi.markov_em_from_features_multi(
+            phi,
+            lens,
+            prev_assign,
+            Wg,
+            T=T,
+            d=d,
+            l=l,
+            assign_mode=assign_mode,
+            force_prev=force_prev,
+            layout=phi_layout,
         )
-    else:
-        assign, counts, switches, g, obj = (
-            pallas_markov.markov_em_fused_packed_multi(
-                u,
-                lens,
-                prev_assign,
-                Wg,
-                T=T,
-                d=d,
-                l=l,
-                assign_mode=assign_mode,
-                force_prev=force_prev,
-                interpret=interpret,
-            )
-        )
+    )
 
     def solve_one(g_r, counts_r):
-        tstats, mstats, istats = _unpack_markov_em_stats(g_r, d, l)
-        pi = counts_r.astype(g_r.dtype) / n
-        m0, S0 = rops.mean_cov_from_stats(istats)
-        A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
-        H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
-        return MixtureParams(pi, m0, S0, A, G, H, L)
+        return _msolve_markov(g_r, counts_r, n, d, l, reg_mode, alpha)
 
     new_params = jax.vmap(solve_one)(g, counts)
     return new_params, assign, counts, switches, obj
@@ -2273,8 +1572,8 @@ def train_em_markov_multi(
 ) -> tuple[MixtureParams, jax.Array, jax.Array, jax.Array]:
     """:func:`train_em_markov` for R restarts at once — the multi-start
     production path.  Per-restart status/convergence semantics are
-    identical to R separate runs (each restart's trajectory is
-    bit-identical — the fused kernel computes the same dots); the loop
+    identical to R separate runs (each restart's trajectory equals a
+    standalone run up to GEMM reassociation, exactly in f64); the loop
     runs until EVERY restart is terminal (a converged restart's state is
     frozen while stragglers finish).  Returns ``(params, assign (R, n),
     iters (R,), status (R,))``.  Pass ``u`` to reuse one packed batch
@@ -2288,12 +1587,8 @@ def train_em_markov_multi(
     R, C = params0.pi.shape
     assign0 = assign0.astype(jnp.int32)
 
-    # shared Φ routing (host level — env resolved at call time); at
-    # long T the packed multi kernel has no grid fallback, so Φ is
-    # always materialized there (longT_always_phi)
-    u, phi, phi_layout = _markov_features(
-        z, x, lens, T=T, d=d, l=l, u=u, longT_always_phi=True
-    )
+    # shared Φ routing (host level — env resolved at call time)
+    u, phi, phi_layout = _markov_features(z, x, lens, T=T, d=d, l=l, u=u)
 
     counts0 = jax.vmap(counts_from_assign, in_axes=(0, None))(assign0, C)
     init_abort = jnp.min(counts0, axis=1) <= min_members  # (R,)
@@ -2605,9 +1900,9 @@ def train_em_markov_pool(
     occupant terminates — unlike the fixed-chunk
     :func:`train_em_markov_multi`, no slot idles waiting for a chunk's
     slowest restart, so the convergence-spread waste that caps the
-    useful chunk size disappears and R can ride the kernel's large-R
-    efficiency (PARITY: R=32 runs ~4.6× a single restart, but a fixed
-    R=32 chunk wastes most of that on spread).
+    useful chunk size disappears and R can ride the large-R
+    efficiency of one shared Φ read (a fixed R=32 chunk wastes most of
+    it on spread).
 
     A freshly inserted candidate takes its initial M step via the
     per-slot ``force_prev`` flag IN THE SAME dispatch as the other
@@ -2659,14 +1954,10 @@ def train_em_markov_pool(
     else:
         n_state = n
         lens_w = lens
-        # materialize Φ once for the whole pool (train_em_markov's
-        # default precompute, same env opt-out): every slot's iteration
-        # then reads Φ — no per-window feature build, half-width GEMMs.
-        # Long T always runs from the canonical-layout grid
-        # materialization (the packed multi kernel has no long-T mode) —
-        # the shared _markov_features routing.
+        # materialize Φ once for the whole pool (the shared
+        # _markov_features routing): every slot's iteration then reads Φ
         u_w, phi_w, phi_layout = _markov_features(
-            z, x, lens, T=T, d=d, l=l, u=u, longT_always_phi=True
+            z, x, lens, T=T, d=d, l=l, u=u
         )
 
         def window(stack, assigns, status, iters, force):
@@ -2707,50 +1998,33 @@ def complete_data_loglik_markov_multi(
     u: jax.Array,  # (T·s, n) packed batch — shared (None under phi)
     *,
     T: int,
-    interpret: bool = None,
     phi: jax.Array = None,  # (F_pad, n_pad) materialized features
     phi_layout: str = "compact",
 ) -> jax.Array:
-    """Per-restart ``Σ_i max_c scores`` objectives (R,) in one kernel
-    pass — the R-restart :func:`complete_data_loglik_markov`.  Pass
-    ``phi`` (+ ``phi_layout="canonical"`` from the long-T grid
-    materializer) to evaluate from materialized features — the only
-    multi-restart route past the packed kernel's T·s ≤ 512 gate."""
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    """Per-restart ``Σ_i max_c scores`` objectives (R,) in one Φ pass —
+    the R-restart :func:`complete_data_loglik_markov`.  Pass ``phi``
+    (+ ``phi_layout="canonical"`` from the long-T materializer) to
+    evaluate from materialized features; otherwise the compact Φ is
+    built from ``u`` (wide storage, like the single-restart
+    objective)."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform not in ("tpu",)
     d = params.m.shape[2]
     l = params.H.shape[3]
     R = params.pi.shape[0]
     n = lens.shape[0]
-    Wg = jax.vmap(mops.markov_em_weights)(
-        params.m, params.S, params.A, params.G, params.H, params.L
-    )
-    Wg = Wg.at[:, :, -1].add(jnp.log(params.pi))
-    if phi is not None:
-        _a, _c, _w, _g, obj = pallas_markov.markov_em_from_features_multi(
-            phi,
-            lens,
-            jnp.zeros((R, n), jnp.int32),
-            Wg,
-            T=T,
-            d=d,
-            l=l,
-            layout=phi_layout,
-            interpret=interpret,
-        )
-        return obj
-    _a, _c, _w, _g, obj = pallas_markov.markov_em_fused_packed_multi(
-        u,
+    if phi is None:
+        phi = pack_markov_features(u, lens, T=T, d=d, l=l)
+        phi_layout = "compact"
+    _a, _c, _w, _g, obj = markov_phi.markov_em_from_features_multi(
+        phi,
         lens,
         jnp.zeros((R, n), jnp.int32),
-        Wg,
+        jax.vmap(_em_weights)(params),
         T=T,
         d=d,
         l=l,
-        interpret=interpret,
+        layout=phi_layout,
     )
     return obj
 

@@ -2,8 +2,8 @@
 Gaussian residuals for both transition and measurement models.
 
 Reference: framework_extended/state_space_model_knn.py:20-155.  The sklearn
-``GridSearchCV(KNeighborsRegressor)`` machinery is replaced by the TPU kNN
-kernels (ops/knn.py): one MXU distance GEMM + ``top_k`` per prediction, and
+``GridSearchCV(KNeighborsRegressor)`` machinery is replaced by the device
+kNN kernels (ops/knn.py): one distance GEMM + ``top_k`` per prediction, and
 a deterministic contiguous k-fold grid search.
 """
 

@@ -17,7 +17,8 @@ Replicated host behaviors (bit-level where feasible):
   cluster assignments use ``np.random.default_rng(random_seed)``
   (reference :83-168);
 - k-means / k-means-all / random initialisation strategies (:131-168),
-  with sklearn KMeans(k-means++) on the host;
+  with sklearn KMeans(k-means++) on the host (scikit-learn is needed
+  only when a k-means init is asked for);
 - md5 content hash of the training data + n_clusters (+ alpha)
   (:177-188) and the ``tmp/mmm-<hash>-<ts>.p.gz`` gzip-pickle cache with
   "there can only be one" eviction (:227-319);
@@ -39,12 +40,10 @@ import string
 
 import jax
 import jax.numpy as jnp
-import matplotlib.pyplot as plt
 import numpy as np
 import scipy.stats as sp_stats
-import sklearn.cluster as skl_cluster
 
-from multimodal_trajectory_modeling_tpu import native, ops
+from multimodal_trajectory_modeling_tpu import config, native, ops
 from multimodal_trajectory_modeling_tpu.models import em
 from multimodal_trajectory_modeling_tpu.utils import state_space as util
 
@@ -62,9 +61,23 @@ def _compute_dtype():
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
+def _kmeans_cls():
+    """scikit-learn's KMeans — the reference's k-means seeding, imported
+    only when a k-means init is asked for."""
+    try:
+        from sklearn.cluster import KMeans
+    except ImportError as err:
+        raise ImportError(
+            "init='kmeans' needs scikit-learn (the reference's k-means "
+            "seeding); install the package's [reference] extra, or pass "
+            "kmeans_start=False to train_with_multiple_random_starts"
+        ) from err
+    return KMeans
+
+
 class MMLinGaussSS_marginalizable:
     """Mixture of linear-Gaussian state-space models with exact NaN
-    marginalization, trained by hard-assignment EM on TPU."""
+    marginalization, trained by hard-assignment EM on the accelerator."""
 
     def __init__(
         self,
@@ -125,7 +138,7 @@ class MMLinGaussSS_marginalizable:
             # (scikit-learn 1.3.x default; >=1.4 switched to 'auto' = 1 run,
             # which changes the kmeans-seeded baseline and hence which
             # multistart candidate wins on some folds)
-            self.cluster_assignment = skl_cluster.KMeans(
+            self.cluster_assignment = _kmeans_cls()(
                 n_clusters=C,
                 init="k-means++",
                 n_init=10,
@@ -135,7 +148,7 @@ class MMLinGaussSS_marginalizable:
             flat = np.stack(
                 [self.states[:, i, :].ravel() for i in range(self.n_data)]
             )
-            self.cluster_assignment = skl_cluster.KMeans(
+            self.cluster_assignment = _kmeans_cls()(
                 n_clusters=C,
                 init="k-means++",
                 n_init=10,
@@ -811,15 +824,15 @@ class MMLinGaussSS_marginalizable:
         every M step exactly like the reference and recording an
         :class:`~..utils.trace.EMTrace` in ``self.last_trace``.
 
-        ``fast=True`` routes the fused-kernel production paths: suffix
-        -only missingness (variable trajectory lengths) takes the O(T)
-        Markov EM kernel (:func:`em.train_em_markov` — one kernel pass
-        per iteration, no pattern sort); interior missingness at long T
-        (T(d+l) > 512) or unstructured missingness (> 256 patterns)
-        takes the exact O(T) partial-observation filter trainer
-        (:func:`em.train_em_masked_kalman`); any other missingness takes
-        the pattern-sorted dense-joint kernels
-        (:func:`em.train_em_sorted`).
+        ``fast=True`` routes the production paths: suffix-only
+        missingness (variable trajectory lengths) takes the O(T) Markov
+        EM (:func:`em.train_em_markov` — one pass over the materialized
+        features per iteration, no pattern sort); interior missingness
+        at long T (T(d+l) > 512) or unstructured missingness (> 256
+        patterns) takes the exact O(T) partial-observation filter
+        trainer (:func:`em.train_em_masked_kalman`); any other
+        missingness takes the dense-joint trainer with per-pattern
+        precomputed inverses (:func:`em.train_em`, ``method="inverse"``).
         Both are f64-identical to the default path, f32 up to
         reassociation; leave ``False`` for bit-level reference parity on
         the CPU-x64 path.  ``verbose=True`` takes the host-stepped loop
@@ -840,8 +853,8 @@ class MMLinGaussSS_marginalizable:
                 patterns, z.shape[0], z.shape[-1], x.shape[-1]
             )
             if plens is not None:
-                # suffix missingness → fused O(T) Markov EM (one kernel
-                # pass per iteration, no sort; f64-identical, tested)
+                # suffix missingness → O(T) Markov EM (one Φ pass per
+                # iteration, no sort; f64-identical, tested)
                 params, assign, iters, status = em.train_em_markov(
                     self._stacked_params(),
                     jnp.asarray(self.cluster_assignment),
@@ -870,29 +883,19 @@ class MMLinGaussSS_marginalizable:
                     alpha=float(self.alpha),
                 )
             else:
-                order = np.argsort(pid_np, kind="stable")
-                sizes = tuple(
-                    int(s)
-                    for s in np.bincount(
-                        pid_np, minlength=patterns.shape[0]
-                    )
-                )
-                oj = jnp.asarray(order)
-                params, assign_s, iters, status = em.train_em_sorted(
+                params, assign, iters, status = em.train_em(
                     self._stacked_params(),
-                    jnp.asarray(self.cluster_assignment)[oj],
-                    z[:, oj],
-                    x[:, oj],
-                    v[oj],
+                    jnp.asarray(self.cluster_assignment),
+                    z,
+                    x,
+                    v,
                     patterns,
-                    sizes=sizes,
+                    pid,
                     n_steps=n_steps,
                     reg_mode=reg_mode,
                     alpha=float(self.alpha),
+                    method="inverse",
                 )
-                assign = np.empty_like(np.asarray(assign_s))
-                assign[order] = np.asarray(assign_s)  # invert the sort
-                assign = jnp.asarray(assign)
         else:
             params, assign, iters, status = em.train_em(
                 self._stacked_params(),
@@ -1019,6 +1022,7 @@ class MMLinGaussSS_marginalizable:
         use_cache: bool = True,
         starts_per_batch: int = 256,
         fast: bool = None,
+        kmeans_start: bool = True,
     ):
         """Reference multi-start protocol (mixture:1368-1471), with the
         restart loop replaced by vmapped on-device batches.
@@ -1030,14 +1034,18 @@ class MMLinGaussSS_marginalizable:
         previous ones; non-finite objectives never win; if no candidate is
         finite, raises ``Exception("training failed")``.
 
-        ``fast`` routes each candidate through the pattern-sorted
-        fused-kernel loop (:func:`em.train_em_sorted` — one sort, one
-        compile, candidates replayed sequentially at full per-iteration
-        throughput); ``None`` auto-selects it at large n on TPU
-        (n ≥ 200k), where the sequential fused loop beats the vmapped
-        batch.  The winner rule, objective definition and RNG streams are
-        identical either way; candidate end-states can differ from the
-        vmapped path only by f32 reassociation.
+        ``fast`` routes the candidates through the trainers
+        :meth:`train` takes with ``fast=True`` (suffix missingness: the
+        Markov slot pool :func:`em.train_em_markov_pool`); ``None``
+        auto-selects it at large n (n ≥ 200k) on an accelerator
+        (:func:`..config.backend_route`).  The winner rule, objective
+        definition and RNG streams are identical either way; candidate
+        end-states can differ from the vmapped path only by f32
+        reassociation.
+
+        ``kmeans_start=False`` seeds the first candidate (seed 0)
+        randomly instead of by k-means — a deployment without
+        scikit-learn; the reference protocol is the default.
         """
         if bool(use_cache):
             try:
@@ -1071,7 +1079,7 @@ class MMLinGaussSS_marginalizable:
                 states=self.states,
                 observations=self.observations,
                 random_seed=0,
-                init="kmeans",
+                init="kmeans" if kmeans_start else "random",
                 alpha=self.alpha,
             )
         ]
@@ -1123,8 +1131,7 @@ class MMLinGaussSS_marginalizable:
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
         if fast is None:
             fast = (
-                v.shape[0] >= 200_000
-                and jax.devices()[0].platform == "tpu"
+                v.shape[0] >= 200_000 and config.backend_route() == "gpu"
             )
         results_params, results_assign, objectives = [], [], []
         if fast:
@@ -1133,14 +1140,14 @@ class MMLinGaussSS_marginalizable:
                 patterns, z.shape[0], z.shape[-1], x.shape[-1]
             )
             if plens is not None:
-                # suffix missingness → fused O(T) Markov EM through the
+                # suffix missingness → O(T) Markov EM through the
                 # R-slot POOL scheduler (em.train_em_markov_pool): one
-                # batch read + one feature build per kernel pass serve R
+                # read of the shared Φ per pass serves R
                 # simultaneous candidates, and a slot is refilled the
                 # moment its occupant terminates (a fresh candidate's
                 # initial M step rides the same dispatch via the
                 # per-slot force_prev flag) — no convergence-spread
-                # waste, so R can ride the kernel's large-R efficiency.
+                # waste, so R can ride the large-R efficiency.
                 # Per-candidate trajectories are identical to standalone
                 # runs and results come back in candidate order, so the
                 # first-strictly-greater winner rule is unchanged.
@@ -1152,8 +1159,7 @@ class MMLinGaussSS_marginalizable:
                 x_tp = jnp.transpose(x, (0, 2, 1)).reshape(
                     T0_ * l_n, -1
                 )
-                s_pack = 8 * ((d_n + l_n + 7) // 8)
-                packed_ok_ = T0_ * s_pack <= 512  # packed-kernel VMEM gate
+                packed_ok_ = em.markov_packed_ok(T0_, d_n, l_n)
                 r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
                 if r_fuse > 1 and len(candidates) > 1:
                     if packed_ok_:
@@ -1163,31 +1169,29 @@ class MMLinGaussSS_marginalizable:
                         phi_obj, obj_layout = None, "compact"
                     else:
                         # long T: the pool trains from the canonical
-                        # grid-materialized features (the packed batch
-                        # is never built); candidate objectives evaluate
-                        # from one shared canonical Φ
+                        # features (the packed batch is never built);
+                        # candidate objectives evaluate from one shared
+                        # canonical Φ
                         from multimodal_trajectory_modeling_tpu.ops import (
-                            pallas_markov,
+                            markov_phi,
                         )
 
                         u_pack = None
                         phi_obj = (
-                            pallas_markov.markov_materialize_features_longT(
+                            markov_phi.markov_materialize_features_longT(
                                 z_tp,
                                 x_tp,
                                 lens,
                                 T=T0_,
                                 d=d_n,
                                 l=l_n,
-                                interpret=jax.devices()[0].platform
-                                not in ("tpu",),
                             )
                         )
                         obj_layout = "canonical"
                     # with >1 attached device and MTM_MULTICHIP=1 the
                     # pool window runs data-parallel over a 1-D mesh
-                    # (per-restart stats psums ride ICI; host
-                    # scheduling and the winner rule are unchanged)
+                    # (per-restart stats psums; host scheduling and the
+                    # winner rule are unchanged)
                     pool_mesh = None
                     if (
                         os.environ.get("MTM_MULTICHIP") == "1"
@@ -1213,7 +1217,7 @@ class MMLinGaussSS_marginalizable:
                         mesh=pool_mesh,
                     )
                     # objectives (Σ max scores = e_complete_data_log_lik
-                    # under a fresh E) in R-sized kernel batches
+                    # under a fresh E) in R-sized batches
                     for i0 in range(0, len(pooled), r_fuse):
                         grp = pooled[i0 : i0 + r_fuse]
                         params_st = jax.tree.map(
@@ -1264,10 +1268,9 @@ class MMLinGaussSS_marginalizable:
                 # the filter densities under a fresh E.  Candidates run
                 # SEQUENTIALLY by default: the scalarized filter is
                 # compute-bound and linear in clusters, so the R-slot
-                # pool has no shared work to amortize (measured 0.5-0.8×
-                # sequential on a v5e at n=1e5 — PARITY) — unlike the
-                # Markov kernel, whose batch read/feature build the pool
-                # shares.  MTM_MASKED_POOL=1 opts into the pool
+                # pool has no shared work to amortize — unlike the
+                # Markov route, whose Φ read the pool shares.
+                # MTM_MASKED_POOL=1 opts into the pool
                 # (identical results, tested).
                 r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
                 use_pool = (
@@ -1359,47 +1362,33 @@ class MMLinGaussSS_marginalizable:
                         results_assign.append(np.asarray(assign_c))
                         objectives.append(obj)
             else:
-                order = np.argsort(pid_np, kind="stable")
-                sizes = tuple(
-                    int(s)
-                    for s in np.bincount(
-                        pid_np, minlength=patterns.shape[0]
-                    )
-                )
-                oj = jnp.asarray(order)
-                z_s, x_s, v_s = z[:, oj], x[:, oj], v[oj]
-                pid_s = jnp.asarray(pid_np[order])
                 for cand in candidates:
-                    params_c, assign_s, _iters, _status = (
-                        em.train_em_sorted(
-                            cand._stacked_params(),
-                            jnp.asarray(cand.cluster_assignment)[oj],
-                            z_s,
-                            x_s,
-                            v_s,
-                            patterns,
-                            sizes=sizes,
-                            n_steps=n_steps,
-                            reg_mode=reg_mode,
-                            alpha=float(self.alpha),
-                        )
+                    params_c, assign_c, _iters, _status = em.train_em(
+                        cand._stacked_params(),
+                        jnp.asarray(cand.cluster_assignment),
+                        z,
+                        x,
+                        v,
+                        patterns,
+                        pid,
+                        n_steps=n_steps,
+                        reg_mode=reg_mode,
+                        alpha=float(self.alpha),
+                        method="inverse",
                     )
                     obj = float(
                         em.complete_data_loglik(
-                            params_c, v_s, patterns, pid_s, T=z.shape[0]
+                            params_c, v, patterns, pid, T=z.shape[0]
                         )
                     )
                     results_params.append(params_c)
-                    a = np.empty(order.shape[0], dtype=np.int32)
-                    a[order] = np.asarray(assign_s)  # invert the sort
-                    results_assign.append(a)
+                    results_assign.append(np.asarray(assign_c))
                     objectives.append(obj)
         if not fast:
             # memory model for the vmapped dense path: each restart's
             # E/M materializes an (n, D, C)-scale weighted-stats tensor
             # (D = T(d+l)); the observed blow-up is ≈ 4·n·D·C bytes per
-            # restart (f32; 8 × 1M restarts OOMed a 16 GB chip at
-            # D=80, C=16 — ~5 GB each).  Clamp the batch to a ~6 GB
+            # restart (f32; ~5 GB each at n = 1M, D=80, C=16).  Clamp the batch to a ~6 GB
             # budget; the sequential fused route (`fast`) remains the
             # production path at scale.
             D_joint = z.shape[0] * (z.shape[-1] + x.shape[-1])
@@ -1701,6 +1690,8 @@ class MMLinGaussSS_marginalizable:
                 for i in range(propensities_over_time.shape[1])
             ]
         )
+        import matplotlib.pyplot as plt
+
         fig, ax = plt.subplots()
         ax.spines["right"].set_visible(False)
         ax.spines["top"].set_visible(False)
@@ -1746,6 +1737,8 @@ class MMLinGaussSS_marginalizable:
         """Annotated matshow of a parameter matrix (reference
         mixture:1796-1852)."""
         mat = np.atleast_2d(mat)
+        import matplotlib.pyplot as plt
+
         fig, ax = plt.subplots(layout="constrained", figsize=figsize)
         im = ax.matshow(mat, cmap="cividis")
         if show_colorbar:

@@ -3,7 +3,7 @@
 NumPy-in / NumPy-out re-exports of the device kernels under the reference's
 module-level names and signatures (framework/marginalizable_state_space_model
 .py), so code written against the reference's ``statespace`` module runs
-against the TPU-native implementation unchanged.  Greek-letter parameter
+against the JAX implementation unchanged.  Greek-letter parameter
 names (Γ, Λ) are kept for keyword-call compatibility.
 """
 

@@ -1,7 +1,8 @@
 """ctypes loader for the native host-side data path (mtm_native.c).
 
-The shared library is built on first use with the system C compiler and
-cached next to the source; every entry point has a NumPy fallback, so the
+The shared library is built on first use from ``mtm_native.c`` with the
+system C compiler into ``build/`` beside the source (never shipped, no
+host-specific ``-march``); every entry point has a NumPy fallback, so the
 package works identically (slower) without a toolchain.
 """
 
@@ -15,7 +16,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "mtm_native.c")
-_SO = os.path.join(_HERE, "libmtm_native.so")
+_SO = os.path.join(_HERE, "build", "libmtm_native.so")
 
 _lib = None
 _build_failed = False
@@ -29,22 +30,26 @@ def _load():
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
             _SRC
         ):
+            os.makedirs(os.path.dirname(_SO), exist_ok=True)
+            # build to a private name and rename into place: concurrent
+            # importers (test workers) never load a half-written library
+            tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
                 [
                     os.environ.get("CC", "cc"),
                     "-O3",
-                    "-march=native",
                     "-fopenmp",
                     "-shared",
                     "-fPIC",
                     "-o",
-                    _SO,
+                    tmp,
                     _SRC,
                     "-lm",
                 ],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, _SO)
         lib = ctypes.CDLL(_SO)
         lib.pack_joint_f64.restype = None
         lib.pattern_groups_f64.restype = ctypes.c_int64

@@ -7,7 +7,7 @@ reference implements it as a per-row numba ``guvectorize`` loop doing
 ``det``/``solve`` on the masked submatrix
 (framework/marginalizable_state_space_model.py:728-773).
 
-TPU-native design — fixed shapes, no data-dependent gathers:
+Accelerator design — fixed shapes, no data-dependent gathers:
 
 For a finite-mask ``f ∈ {0,1}^D`` define the identity-padded matrix
 
@@ -31,7 +31,7 @@ Two evaluation strategies:
 - :func:`masked_mvn_logpdf_grouped` — the production path: missingness
   patterns are constant across EM iterations, so rows are grouped by pattern;
   one Cholesky per (pattern) and either a batched triangular solve or a
-  precomputed inverse turned into a single MXU GEMM per pattern.
+  precomputed inverse turned into a single GEMM per pattern.
 """
 
 from __future__ import annotations
@@ -41,13 +41,13 @@ import math
 import jax
 import jax.numpy as jnp
 
-# TPU correctness: the default f32 matmul precision is bf16 multiplies;
-# the sufficient-statistics contractions subtract nearly-equal large
-# moments (normal-equations cancellation), where bf16's 2^-9 rounding
-# produced INDEFINITE covariance estimates on wide-range data (measured:
-# detL < 0 at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
-# contraction pins full f32 precision — a no-op on CPU, multi-pass on
-# the MXU (the hot kernels are HBM-bound, so the cost is hidden).
+# Exact f32 products: an accelerator's default f32 matmul may round its
+# operands (TF32 on the GPU keeps ~10 mantissa bits, bf16 7).  The
+# sufficient-statistics contractions subtract nearly-equal large moments
+# (normal-equations cancellation), where such rounding produced
+# INDEFINITE covariance estimates on wide-range data (measured: detL < 0
+# at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
+# contraction pins full f32 precision (a no-op on the CPU).
 _HI = jax.lax.Precision.HIGHEST
 import numpy as np
 
@@ -175,7 +175,7 @@ def masked_mvn_logpdf_grouped(
     - ``method="solve"``: batched triangular solve against each pattern's
       factor, then per-row selection of its own pattern (exact, stable).
     - ``method="inverse"``: precompute ``Σ'^{-1}`` per pattern and evaluate
-      the quadratic form as ``rowsum((r @ Σ'^{-1}) ⊙ r)`` — a pure MXU GEMM,
+      the quadratic form as ``rowsum((r @ Σ'^{-1}) ⊙ r)`` — a pure GEMM,
       the speed-of-light path for large n.
     - ``method="bucketed"``: per-pattern inverses, but each row contracts
       only against *its own* pattern's inverse (a chunked gather), so work
@@ -228,7 +228,7 @@ def masked_mvn_logpdf_grouped(
         inv = jax.vmap(
             lambda Lp: jax.scipy.linalg.cho_solve((Lp, True), eye)
         )(Lc)  # (P, D, D)
-        q_all = jnp.einsum("nd,pde,ne->np", r, inv, r, precision=_HI)  # MXU GEMMs
+        q_all = jnp.einsum("nd,pde,ne->np", r, inv, r, precision=_HI)  # GEMMs
         q = jnp.take_along_axis(q_all, pattern_id[:, None], axis=1)[:, 0]
     else:
         y_all = jax.vmap(

@@ -1,8 +1,8 @@
-"""Batched k-nearest-neighbor regression on TPU.
+"""Batched k-nearest-neighbor regression on the device.
 
 Replaces sklearn's ``KNeighborsRegressor`` + ``GridSearchCV`` in the
 extended framework (reference framework_extended/state_space_model_knn.py:
-61-97): pairwise squared distances are one MXU GEMM, neighbor selection is
+61-97): pairwise squared distances are one GEMM, neighbor selection is
 ``jax.lax.top_k``, and the k-fold grid search evaluates every (fold, k) pair
 with the same deterministic contiguous folds as sklearn's non-shuffled
 ``KFold``.
@@ -40,7 +40,7 @@ def knn_predict(
     """Mean of the ``k`` nearest training targets for each query row.
 
     Euclidean metric; distances via the ``||q||² − 2 q·x + ||x||²``
-    expansion so the inner product rides the MXU.  Queries are processed in
+    expansion so the inner product is one GEMM.  Queries are processed in
     chunks to bound the (chunk × m) distance matrix in memory.
     """
     m = train_x.shape[0]
@@ -190,7 +190,7 @@ _DEVICE_WORK_THRESHOLD = 5_000_000
 class KNNRegressor:
     """sklearn-compatible surface (``fit`` / ``predict``) over
     :func:`knn_predict`; picklable via plain arrays.  Small problems take a
-    compile-free host path; large ones the MXU kernel."""
+    compile-free host path; large ones the device kernel."""
 
     def __init__(self, n_neighbors: int = 5):
         self.n_neighbors = int(n_neighbors)

@@ -25,13 +25,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# TPU correctness: the default f32 matmul precision is bf16 multiplies;
-# the sufficient-statistics contractions subtract nearly-equal large
-# moments (normal-equations cancellation), where bf16's 2^-9 rounding
-# produced INDEFINITE covariance estimates on wide-range data (measured:
-# detL < 0 at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
-# contraction pins full f32 precision — a no-op on CPU, multi-pass on
-# the MXU (the hot kernels are HBM-bound, so the cost is hidden).
+# Exact f32 products: an accelerator's default f32 matmul may round its
+# operands (TF32 on the GPU keeps ~10 mantissa bits, bf16 7).  The
+# sufficient-statistics contractions subtract nearly-equal large moments
+# (normal-equations cancellation), where such rounding produced
+# INDEFINITE covariance estimates on wide-range data (measured: detL < 0
+# at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
+# contraction pins full f32 precision (a no-op on the CPU).
 _HI = jax.lax.Precision.HIGHEST
 
 __all__ = [

@@ -7,9 +7,9 @@ and runs either a bare SVD ``lstsq`` (marginalizable_mixture_model.py:1167-
 or sklearn Ridge (same:64-94; mixture:1202-1233).  The residual covariance is
 always ``np.cov(Y - X @ A, rowvar=False)`` — i.e. *mean-centered* with ddof=1.
 
-TPU-native design: all clusters at once.  A one-hot membership matrix ``W``
+Accelerator design: all clusters at once.  A one-hot membership matrix ``W``
 ``(N, C)`` and a finite-row mask fold into weighted sufficient statistics
-``X^T X, X^T Y, Y^T Y, ΣX, ΣY, count`` via einsums (MXU work), then a tiny
+``X^T X, X^T Y, Y^T Y, ΣX, ΣY, count`` via einsums (GEMM work), then a tiny
 per-cluster solve.  Three solve modes replicate the reference's three
 regression flavours:
 
@@ -31,13 +31,13 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# TPU correctness: the default f32 matmul precision is bf16 multiplies;
-# the sufficient-statistics contractions subtract nearly-equal large
-# moments (normal-equations cancellation), where bf16's 2^-9 rounding
-# produced INDEFINITE covariance estimates on wide-range data (measured:
-# detL < 0 at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
-# contraction pins full f32 precision — a no-op on CPU, multi-pass on
-# the MXU (the hot kernels are HBM-bound, so the cost is hidden).
+# Exact f32 products: an accelerator's default f32 matmul may round its
+# operands (TF32 on the GPU keeps ~10 mantissa bits, bf16 7).  The
+# sufficient-statistics contractions subtract nearly-equal large moments
+# (normal-equations cancellation), where such rounding produced
+# INDEFINITE covariance estimates on wide-range data (measured: detL < 0
+# at |x|~50, collapsing EM; see PARITY.md).  Every load-bearing
+# contraction pins full f32 precision (a no-op on the CPU).
 _HI = jax.lax.Precision.HIGHEST
 
 __all__ = [
@@ -125,9 +125,8 @@ def weighted_regression_stats_gram(
     ``(T', n, p+q+1)`` and contracts ``G = Σ_t Σ_n w_nc · U U^T`` in a
     single ``tnu,tnv,nc->cuv`` einsum whose ``(u, u)`` output blocks contain
     every statistic at once (X^TX, X^TY, Y^TY and — via the validity
-    column — ΣX, ΣY, count).  ~25% faster than the six-einsum path on a
-    v5e chip at n=1e6 (69 ms vs 88 ms) because the batch streams from HBM
-    once per group instead of three times.
+    column — ΣX, ΣY, count).  The batch streams from device memory once
+    per group instead of three times.
 
     Results match the six-einsum path exactly in f64 and to f32
     reassociation noise (~1e-5 relative) in f32; ``em.mstep`` keeps the
@@ -193,8 +192,8 @@ def solve_regression(
     elif mode == "chol":
         # eps-ridged normal equations via Cholesky — util.regress
         # (util_state_space.py:33-61) semantics through a fast
-        # factorization.  TPU eigh on tiny batched matrices is
-        # latency-bound (~9 ms for 32 5×5s on a v5e); cho_solve is ~free.
+        # factorization (batched eigh of tiny matrices is latency-bound
+        # on accelerators; cho_solve is cheap).
         # Requires X^T X + eps·I ≻ 0 — guaranteed for any non-degenerate
         # cluster; bench.py uses this mode.
         Lc = jnp.linalg.cholesky(xtx + eps * eye)
@@ -205,9 +204,9 @@ def solve_regression(
     At = A.swapaxes(-1, -2)
     # THE cancellation site of the whole M step: the residual Gram
     # `yty − AᵀXᵀY − YᵀXA + AᵀXᵀXA` subtracts moments ~10⁴× the result;
-    # at the TPU-default bf16 matmul precision the products' 2⁻⁹
-    # rounding made this INDEFINITE on wide-range data (detL̂ < 0,
-    # collapsing EM — PARITY.md round-5 finding).
+    # rounded (bf16 or TF32) products made this INDEFINITE on
+    # wide-range data (detL̂ < 0, collapsing EM — PARITY.md round-5
+    # finding).
     with jax.default_matmul_precision("highest"):
         rtr = yty - At @ xty - xty.swapaxes(-1, -2) @ A + At @ xtx @ A
     sr = sy - jnp.einsum("cp,cpq->cq", sx, A, precision=_HI)  # Σ residual

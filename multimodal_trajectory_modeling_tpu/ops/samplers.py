@@ -35,7 +35,7 @@ def sample_trajectories(
     L: jax.Array,
 ) -> tuple[jax.Array, jax.Array]:
     """Draw ``n`` trajectories of length ``T`` from the LG-SSM, fully jitted
-    (eager per-op dispatch is prohibitively slow on remote accelerators).
+    (eager per-op dispatch is slow on accelerators).
 
     Returns ``(z, x)`` with shapes ``(T, n, d)`` and ``(T, n, l)``.
     Reference: ``sample_trajectory``

@@ -3,8 +3,8 @@
 The natural parallel axes of this model family (SURVEY §2.4):
 
 - ``data``  — trajectories: the E step is embarrassingly parallel, the M
-  step reduces additive sufficient statistics (one ``psum`` per statistic)
-  over ICI;
+  step reduces additive sufficient statistics (one ``psum`` per statistic,
+  NCCL all-reduces over NVLink on the GPU);
 - ``start`` — independent EM restarts of the multi-start protocol: zero
   communication, perfect scaling.
 

@@ -6,7 +6,7 @@ Two equivalent routes to multi-chip EM:
    batch with trajectory-axis shardings (parallel/mesh.py) and call the
    ordinary jitted ``em.train_em`` — XLA's SPMD partitioner turns the
    M-step einsum reductions and the switch/bincount scalars into
-   all-reduces over ICI automatically.
+   all-reduces automatically.
 
 2. **Explicit** (:func:`train_em_shardmap`): the same loop written inside a
    ``shard_map`` over the ``data`` axis, with every cross-device reduction
@@ -333,9 +333,9 @@ def train_em_multistart_2d(
     the fast axis inside a row, and the ``restart`` axis carries ZERO
     communication (the embarrassingly-parallel multistart axis of the
     reference protocol, marginalizable_mixture_model.py:1368-1471).  This
-    is the single-controller layout for multi-slice deployments: map
-    ``data`` onto ICI within a slice and ``restart`` onto DCN across
-    slices, so the per-iteration reductions never cross the slow network.
+    is the single-controller layout for multi-host deployments: map
+    ``data`` onto the devices of one host and ``restart`` across hosts,
+    so the per-iteration reductions never cross the slow network.
 
     ``assign0`` may be stacked ``(R, n)`` (one initial hard assignment per
     restart — bit-compatible with running :func:`train_em_shardmap` per
@@ -401,12 +401,6 @@ def train_em_multistart_2d(
     )(params_stacked, assign0, z, x, v, patterns, pattern_id)
 
 
-def _packed_ok(T, d, l):
-    """The packed ACC build's VMEM gate (mirrors
-    :func:`..models.em.train_em_markov`)."""
-    return T * 8 * ((d + l + 7) // 8) <= 512
-
-
 def _resolve_phi_store_str(dtype):
     """:func:`..models.em._resolve_phi_store`, normalized to the
     hashable ``"i16" | "bf16" | None`` the jitted shard_map impls take
@@ -425,31 +419,22 @@ def _quantize_phi_global(phi, axis):
     """Quantize a per-shard Φ slice with scales pmax-ed over the data
     axis — every shard uses the GLOBAL per-row max, so the stored int16
     payload is bit-identical to a single-device
-    :func:`..ops.pallas_markov.quantize_phi` of the full Φ."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    :func:`..ops.markov_phi.quantize_phi` of the full Φ."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
     amax = jnp.max(jnp.abs(phi), axis=1)
     if axis is not None:
         amax = jax.lax.pmax(amax, axis)
-    scale = pallas_markov.phi_scale_from_absmax(amax, phi.dtype)
-    return pallas_markov.quantize_phi(phi, scale)
+    scale = markov_phi.phi_scale_from_absmax(amax, phi.dtype)
+    return markov_phi.quantize_phi(phi, scale)
 
 
 def _local_markov_route(
-    z_tp, x_tp, lens_l, *, T, d, l, dtype, interpret, precompute=None,
-    phi_store=None, axis=None,
+    z_tp, x_tp, lens_l, *, T, d, l, dtype, phi_store=None, axis=None
 ):
-    """Per-shard Markov kernel routing for the shard_map trainers:
-    returns ``(u, phi, layout)``.
-
-    - packed regime (T·s ≤ 512), precompute on (default): compact Φ
-      materialized once per shard — iterations read Φ only;
-    - packed regime, ``MTM_MARKOV_PRECOMP=0``: packed batch ``u`` for
-      the per-iteration shift-product kernel (``phi = None``);
-    - long T: canonical-layout Φ from the grid-over-T materializer —
-      the ONLY route (the packed kernel's ACC build exceeds VMEM), so
-      the env opt-out does not apply and the (T·s, n) packed batch is
-      never built.
+    """Per-shard Φ for the shard_map trainers: returns ``(phi, layout)``
+    — the compact layout when :func:`..models.em.markov_packed_ok`, else
+    the canonical long-T layout.
 
     ``phi_store`` (resolved by the HOST-level wrappers from
     ``MTM_MARKOV_PHI`` — a jitted body must never read the env) selects
@@ -458,35 +443,26 @@ def _local_markov_route(
     per-row scales so sharded storage ≡ single-device storage bit-for-
     bit; ``"bf16"`` narrows the materialized store; ``None`` keeps the
     compute dtype (wide)."""
-    import os as _os
+    from multimodal_trajectory_modeling_tpu.models.em import (
+        markov_packed_ok,
+    )
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
-
-    if precompute is None:
-        # host-level callers only: a jitted caller must resolve the env
-        # BEFORE tracing and pass an explicit bool (the trainers below
-        # thread it through as a static argument)
-        precompute = _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
-    quantize = phi_store == "i16"
     store = jnp.bfloat16 if phi_store == "bf16" else None
-    if not _packed_ok(T, d, l):
-        phi = pallas_markov.markov_materialize_features_longT(
-            z_tp, x_tp, lens_l, T=T, d=d, l=l, store_dtype=store,
-            interpret=interpret,
+    if markov_packed_ok(T, d, l):
+        u = markov_phi.pack_markov_u(z_tp, x_tp, T=T, d=d, l=l)
+        phi = markov_phi.markov_materialize_features(
+            u, lens_l, T=T, d=d, l=l, dtype=dtype, store_dtype=store
         )
-        if quantize:
-            phi = _quantize_phi_global(phi, axis)
-        return None, phi, "canonical"
-    u = pallas_markov.pack_markov_u(z_tp, x_tp, T=T, d=d, l=l)
-    if precompute:
-        phi = pallas_markov.markov_materialize_features(
-            u, lens_l, T=T, d=d, l=l, dtype=dtype, store_dtype=store,
-            interpret=interpret,
+        layout = "compact"
+    else:
+        phi = markov_phi.markov_materialize_features_longT(
+            z_tp, x_tp, lens_l, T=T, d=d, l=l, store_dtype=store
         )
-        if quantize:
-            phi = _quantize_phi_global(phi, axis)
-        return u, phi, "compact"
-    return u, None, "compact"
+        layout = "canonical"
+    if phi_store == "i16":
+        phi = _quantize_phi_global(phi, axis)
+    return phi, layout
 
 
 def train_em_markov_shardmap(
@@ -503,12 +479,8 @@ def train_em_markov_shardmap(
     min_members: int = 3,
 ):
     """Data-parallel fused O(T) Markov EM — thin wrapper that resolves
-    ``MTM_MARKOV_PRECOMP`` / ``MTM_MARKOV_PHI`` at call time (never
-    inside the trace) and forwards to the jitted impl with them as
-    static arguments."""
-    import os as _os
-
-    precompute = _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
+    ``MTM_MARKOV_PHI`` at call time (never inside the trace) and
+    forwards to the jitted impl with it as a static argument."""
     return _train_em_markov_shardmap_impl(
         params0,
         assign0,
@@ -520,7 +492,6 @@ def train_em_markov_shardmap(
         reg_mode=reg_mode,
         alpha=alpha,
         min_members=min_members,
-        precompute=precompute,
         phi_store=_resolve_phi_store_str(z.dtype),
     )
 
@@ -533,7 +504,6 @@ def train_em_markov_shardmap(
         "reg_mode",
         "alpha",
         "min_members",
-        "precompute",
         "phi_store",
     ),
 )
@@ -549,12 +519,11 @@ def _train_em_markov_shardmap_impl(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    precompute: bool = True,
     phi_store: str | None = None,
 ):
     """Data-parallel fused O(T) Markov EM (suffix missingness) inside
-    ``shard_map``: each shard runs ONE fused kernel pass per iteration
-    (ops/pallas_markov.py) and the ONLY cross-device traffic is
+    ``shard_map``: each shard runs ONE Φ pass per iteration
+    (ops/markov_phi.py) and the ONLY cross-device traffic is
 
       - ``psum`` of the per-cluster feature-statistics block ``(F, C)``
         (~9 KB at the benchmark config — it already contains the
@@ -572,60 +541,39 @@ def _train_em_markov_shardmap_impl(
         _unpack_markov_em_stats,
         counts_from_assign,
     )
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    from multimodal_trajectory_modeling_tpu.models.em import _em_weights
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
     C = params0.pi.shape[0]
     T, _, d = z.shape
     l = x.shape[-1]
     axis = "data"
-    interpret = jax.devices()[0].platform not in ("tpu",)
 
     def shard_fn(params0, assign0, z_l, x_l, lens_l):
         assign0 = assign0.astype(jnp.int32)
         n_l = z_l.shape[1]
         z_tp = jnp.transpose(z_l, (0, 2, 1)).reshape(T * d, n_l)
         x_tp = jnp.transpose(x_l, (0, 2, 1)).reshape(T * l, n_l)
-        # packed batch / materialized features — iteration-invariant per
-        # shard, hoisted out of the while_loop below (long T routes the
-        # canonical Φ; iterations then read Φ only)
-        u_l, phi_l, layout = _local_markov_route(
+        # materialized features — iteration-invariant per shard,
+        # hoisted out of the while_loop below
+        phi_l, layout = _local_markov_route(
             z_tp, x_tp, lens_l, T=T, d=d, l=l, dtype=z_l.dtype,
-            interpret=interpret, precompute=precompute,
             phi_store=phi_store, axis=axis,
         )
         n_total = jax.lax.psum(jnp.asarray(n_l, z_l.dtype), axis)
 
         def fused(params, prev, mode):
-            Wg = mops.markov_em_weights(
-                params.m, params.S, params.A, params.G, params.H, params.L
+            a, c, w, g, _obj = markov_phi.markov_em_from_features(
+                phi_l,
+                lens_l,
+                prev,
+                _em_weights(params),
+                T=T,
+                d=d,
+                l=l,
+                assign_mode=mode,
+                layout=layout,
             )
-            Wg = Wg.at[:, -1].add(jnp.log(params.pi))
-            if phi_l is not None:
-                a, c, w, g, _obj = pallas_markov.markov_em_from_features(
-                    phi_l,
-                    lens_l,
-                    prev,
-                    Wg,
-                    T=T,
-                    d=d,
-                    l=l,
-                    assign_mode=mode,
-                    layout=layout,
-                    interpret=interpret,
-                )
-            else:
-                a, c, w, g, _obj = pallas_markov.markov_em_fused_packed(
-                    u_l,
-                    lens_l,
-                    prev,
-                    Wg,
-                    T=T,
-                    d=d,
-                    l=l,
-                    assign_mode=mode,
-                    interpret=interpret,
-                )
             g = jax.lax.psum(g, axis)
             w = jax.lax.psum(w, axis)
             c = jax.lax.psum(c, axis)
@@ -687,6 +635,10 @@ def _train_em_markov_shardmap_impl(
     )(params0, assign0, z, x, lens)
 
 
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "n_steps", "reg_mode", "alpha", "min_members"),
+)
 def train_em_masked_kalman_shardmap(
     params0,
     assign0,
@@ -698,7 +650,6 @@ def train_em_masked_kalman_shardmap(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    pallas_mode: str | None = None,
 ):
     """Data-parallel O(T) EM under ARBITRARY missingness inside
     ``shard_map``: the exact partial-observation Kalman densities
@@ -709,36 +660,6 @@ def train_em_masked_kalman_shardmap(
     tuples.  Equal to the single-device
     :func:`..models.em.train_em_masked_kalman` up to psum reassociation
     (exact on the f64 test mesh)."""
-    mode = (
-        em._pallas_kalman_mode() if pallas_mode is None else pallas_mode
-    )
-    return _train_em_masked_kalman_shardmap_impl(
-        params0, assign0, z, x, mesh=mesh, n_steps=n_steps,
-        reg_mode=reg_mode, alpha=alpha, min_members=min_members,
-        pallas_mode=mode,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "n_steps", "reg_mode", "alpha", "min_members",
-        "pallas_mode",
-    ),
-)
-def _train_em_masked_kalman_shardmap_impl(
-    params0,
-    assign0,
-    z,
-    x,
-    *,
-    mesh: Mesh,
-    n_steps: int,
-    reg_mode: str,
-    alpha: float,
-    min_members: int,
-    pallas_mode: str,
-):
     from multimodal_trajectory_modeling_tpu.ops import kalman
 
     C = params0.pi.shape[0]
@@ -747,21 +668,8 @@ def _train_em_masked_kalman_shardmap_impl(
     def psum_tree(t):
         return jax.tree.map(lambda a: jax.lax.psum(a, axis), t)
 
-    use_pallas = pallas_mode != "off"
-
     def shard_fn(params0, assign0, z_l, x_l):
         assign0 = assign0.astype(jnp.int32)
-        n_l = z_l.shape[1]
-        if use_pallas:
-            # pack the local shard ONCE outside the EM loop (TPU route:
-            # the Pallas filter kernel, see em._pallas_kalman_mode)
-            from multimodal_trajectory_modeling_tpu.ops import (
-                pallas_kalman,
-            )
-
-            z4, x4, _tc, _bn = pallas_kalman.pack_masked_kalman(
-                z_l, x_l, C
-            )
         n_total = jax.lax.psum(
             jnp.asarray(assign0.shape[0], z_l.dtype), axis
         )
@@ -791,23 +699,11 @@ def _train_em_masked_kalman_shardmap_impl(
 
         def body(state):
             params, assign, i, status = state
-            if use_pallas:
-                from multimodal_trajectory_modeling_tpu.ops import (
-                    pallas_kalman,
-                )
-
-                ll = pallas_kalman.kalman_masked_logliks_packed(
-                    z4, x4,
-                    params.m, params.S, params.A, params.G, params.H,
-                    params.L, t_chunk=_tc, block_cols=_bn,
-                    interpret=(pallas_mode == "interpret"),
-                )[:, :n_l]
-            else:
-                ll = kalman.kalman_masked_logliks(
-                    z_l, x_l,
-                    params.m, params.S, params.A, params.G, params.H,
-                    params.L,
-                )
+            ll = kalman.kalman_masked_logliks(
+                z_l, x_l,
+                params.m, params.S, params.A, params.G, params.H,
+                params.L,
+            )
             new_assign = em.assignments_from_logliks(params.pi, ll)
             switches = jax.lax.psum(jnp.sum(new_assign != assign), axis)
             counts = jax.lax.psum(
@@ -859,12 +755,8 @@ def train_em_markov_multi_shardmap(
     min_members: int = 3,
 ):
     """Data-parallel fused-multistart Markov EM — thin wrapper that
-    resolves ``MTM_MARKOV_PRECOMP`` / ``MTM_MARKOV_PHI`` at call time
-    (never inside the trace) and forwards to the jitted impl with them
-    static."""
-    import os as _os
-
-    precompute = _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
+    resolves ``MTM_MARKOV_PHI`` at call time (never inside the trace)
+    and forwards to the jitted impl with it static."""
     return _train_em_markov_multi_shardmap_impl(
         params0,
         assign0,
@@ -876,7 +768,6 @@ def train_em_markov_multi_shardmap(
         reg_mode=reg_mode,
         alpha=alpha,
         min_members=min_members,
-        precompute=precompute,
         phi_store=_resolve_phi_store_str(z.dtype),
     )
 
@@ -889,7 +780,6 @@ def train_em_markov_multi_shardmap(
         "reg_mode",
         "alpha",
         "min_members",
-        "precompute",
         "phi_store",
     ),
 )
@@ -905,14 +795,13 @@ def _train_em_markov_multi_shardmap_impl(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    precompute: bool = True,
     phi_store: str | None = None,
 ):
     """Data-parallel FUSED-MULTISTART Markov EM: every device holds all R
     restart parameter rows (tiny) and its own trajectory shard; each
-    iteration is ONE R-restart packed kernel pass per shard
-    (ops/pallas_markov.py:markov_em_fused_packed_multi — batch read and
-    feature build amortized across the chunk) followed by psums of the
+    iteration is ONE R-restart Φ pass per shard
+    (ops/markov_phi.py:markov_em_from_features_multi — one Φ read
+    amortized across the chunk) followed by psums of the
     per-restart statistics blocks ``g (R, F, C)``, membership counts
     ``(R, C)`` and switch counts ``(R,)``.  All devices cooperate on every
     restart — the complement of :func:`train_em_multistart_sharded`
@@ -926,7 +815,7 @@ def _train_em_markov_multi_shardmap_impl(
     (R, n), iters (R,), status (R,))``.
 
     Reference protocol: mixture:1368-1471 (n_starts sequential ``train()``
-    calls); communication is ~R·(F·C+C+1) floats per iteration, rides ICI.
+    calls); communication is ~R·(F·C+C+1) floats per iteration.
     """
     from multimodal_trajectory_modeling_tpu.models.em import (
         STATUS_CONVERGED,
@@ -934,65 +823,41 @@ def _train_em_markov_multi_shardmap_impl(
         STATUS_INIT_ABORT,
         STATUS_RUNNING,
         MixtureParams,
+        _em_weights,
         _tree_select_rows,
         _unpack_markov_em_stats,
         counts_from_assign,
     )
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
     R, C = params0.pi.shape
     T, _, d = z.shape
     l = x.shape[-1]
     axis = "data"
-    interpret = jax.devices()[0].platform not in ("tpu",)
 
     def shard_fn(params0, assign0, z_l, x_l, lens_l):
         assign0 = assign0.astype(jnp.int32)
         n_l = z_l.shape[1]
         z_tp = jnp.transpose(z_l, (0, 2, 1)).reshape(T * d, n_l)
         x_tp = jnp.transpose(x_l, (0, 2, 1)).reshape(T * l, n_l)
-        u_l, phi_l, layout = _local_markov_route(
+        phi_l, layout = _local_markov_route(
             z_tp, x_tp, lens_l, T=T, d=d, l=l, dtype=z_l.dtype,
-            interpret=interpret, precompute=precompute,
             phi_store=phi_store, axis=axis,
         )
         n_total = jax.lax.psum(jnp.asarray(n_l, z_l.dtype), axis)
 
         def fused(params, prev, mode):
-            Wg = jax.vmap(mops.markov_em_weights)(
-                params.m, params.S, params.A, params.G, params.H, params.L
+            a, c, w, g, _obj = markov_phi.markov_em_from_features_multi(
+                phi_l,
+                lens_l,
+                prev,
+                jax.vmap(_em_weights)(params),
+                T=T,
+                d=d,
+                l=l,
+                assign_mode=mode,
+                layout=layout,
             )
-            Wg = Wg.at[:, :, -1].add(jnp.log(params.pi))
-            if phi_l is not None:
-                a, c, w, g, _obj = (
-                    pallas_markov.markov_em_from_features_multi(
-                        phi_l,
-                        lens_l,
-                        prev,
-                        Wg,
-                        T=T,
-                        d=d,
-                        l=l,
-                        assign_mode=mode,
-                        layout=layout,
-                        interpret=interpret,
-                    )
-                )
-            else:
-                a, c, w, g, _obj = (
-                    pallas_markov.markov_em_fused_packed_multi(
-                        u_l,
-                        lens_l,
-                        prev,
-                        Wg,
-                        T=T,
-                        d=d,
-                        l=l,
-                        assign_mode=mode,
-                        interpret=interpret,
-                    )
-                )
             g = jax.lax.psum(g, axis)
             w = jax.lax.psum(w, axis)
             c = jax.lax.psum(c, axis)
@@ -1104,8 +969,7 @@ def _pool_window_shardmap(
     iters,  # (R,) int32
     force,  # (R,) int32
     lens,  # (n_pad,) int32 — sharded (0 on pad lanes)
-    u,  # (T·s, n_pad) packed batch — lanes sharded (None under long-T Φ)
-    phi=None,  # (Fc_pad, n_pad) materialized features — lanes sharded
+    phi,  # (F_pad, n_pad) materialized features — lanes sharded
     *,
     mesh: Mesh,
     T: int,
@@ -1130,64 +994,38 @@ def _pool_window_shardmap(
     agrees bit-for-bit."""
     from multimodal_trajectory_modeling_tpu.models.em import (
         MixtureParams,
+        _em_weights,
         _pool_window_protocol,
         _unpack_markov_em_stats,
     )
-    from multimodal_trajectory_modeling_tpu.ops import markov as mops
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
     axis = "data"
-    interpret = jax.devices()[0].platform not in ("tpu",)
 
-    def shard_fn(
-        params, assigns_l, status, iters, force, lens_l, u_l, phi_l
-    ):
-        # pad lanes must stay prev = -1 across passes: the kernel marks
+    def shard_fn(params, assigns_l, status, iters, force, lens_l, phi_l):
+        # pad lanes must stay prev = -1 across passes: the Φ pass marks
         # its OWN invalid-lane outputs with C (not -1), and unlike the
         # single-device wrapper (which re-pads prev from a length-n
         # vector every call) this state array round-trips through the
-        # kernel — without the mask a pad lane would turn "valid" on
+        # pass — without the mask a pad lane would turn "valid" on
         # the second pass and poison counts/switches
         w_l = assigns_l.shape[1]
         lane0 = jax.lax.axis_index(axis) * w_l
         validlane = (lane0 + jnp.arange(w_l)) < n_true  # (w_l,)
 
         def emstep(params, prev, force_r):
-            Wg = jax.vmap(mops.markov_em_weights)(
-                params.m, params.S, params.A, params.G, params.H, params.L
+            a, c, w, g, _obj = markov_phi.markov_em_from_features_multi(
+                phi_l,
+                lens_l,
+                prev,
+                jax.vmap(_em_weights)(params),
+                T=T,
+                d=d,
+                l=l,
+                assign_mode="argmax",
+                force_prev=force_r,
+                layout=phi_layout,
             )
-            Wg = Wg.at[:, :, -1].add(jnp.log(params.pi))
-            if phi_l is not None:
-                a, c, w, g, _obj = (
-                    pallas_markov.markov_em_from_features_multi(
-                        phi_l,
-                        lens_l,
-                        prev,
-                        Wg,
-                        T=T,
-                        d=d,
-                        l=l,
-                        assign_mode="argmax",
-                        force_prev=force_r,
-                        layout=phi_layout,
-                        interpret=interpret,
-                    )
-                )
-            else:
-                a, c, w, g, _obj = (
-                    pallas_markov.markov_em_fused_packed_multi(
-                        u_l,
-                        lens_l,
-                        prev,
-                        Wg,
-                        T=T,
-                        d=d,
-                        l=l,
-                        assign_mode="argmax",
-                        force_prev=force_r,
-                        interpret=interpret,
-                    )
-                )
             g = jax.lax.psum(g, axis)
             c = jax.lax.psum(c, axis)
             w = jax.lax.psum(w, axis)
@@ -1216,14 +1054,11 @@ def _pool_window_shardmap(
         )
 
     param_spec = jax.tree.map(lambda _: P(), params)
-    if phi is None:
-        phi_spec = None
-    elif isinstance(phi, pallas_markov.PhiQuant):
+    if isinstance(phi, markov_phi.PhiQuant):
         # int16 payload lane-sharded; per-row scales replicated
-        phi_spec = pallas_markov.PhiQuant(P(None, "data"), P())
+        phi_spec = markov_phi.PhiQuant(P(None, "data"), P())
     else:
         phi_spec = P(None, "data")
-    u_spec = None if u is None else P(None, "data")
     return jax.shard_map(
         shard_fn,
         mesh=mesh,
@@ -1234,12 +1069,11 @@ def _pool_window_shardmap(
             P(),
             P(),
             P("data"),
-            u_spec,
             phi_spec,
         ),
         out_specs=(param_spec, P(None, "data"), P(), P(), P()),
         check_vma=False,
-    )(params, assigns, status, iters, force, lens, u, phi)
+    )(params, assigns, status, iters, force, lens, phi)
 
 
 def pool_window_for_mesh(
@@ -1257,22 +1091,22 @@ def pool_window_for_mesh(
 ):
     """Prepare the data-parallel pool window for
     :func:`..models.em.train_em_markov_pool` ``mesh=`` mode: pad the
-    lane axis so every shard is a whole kernel block (2048 lanes), pack
-    (or re-pad) the batch, and return ``(window, lens_pad, u_pad,
-    n_state)`` where ``window(stack, assigns, status, iters, force)``
-    runs :func:`_pool_window_shardmap` over the mesh and ``n_state`` is
-    the padded lane count the host scheduler's state arrays must carry
-    (pad lanes ride as ``prev = -1``, ignored by the kernel)."""
-    import numpy as np
-
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov
-
-    import os as _os
+    lane axis to a multiple of 128 lanes per shard, materialize Φ
+    sharded on lanes, and return ``(window, n_state)`` where
+    ``window(stack, assigns, status, iters, force)`` runs
+    :func:`_pool_window_shardmap` over the mesh and ``n_state`` is the
+    padded lane count the host scheduler's state arrays must carry (pad
+    lanes ride as ``prev = -1``, ignored by the Φ pass).  ``u`` reuses a
+    packed batch (compact layout only)."""
+    from multimodal_trajectory_modeling_tpu.models.em import (
+        markov_packed_ok,
+    )
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
     T, n, d = z.shape
     l = x.shape[-1]
     D = int(mesh.shape["data"])
-    quantum = 2048 * D
+    quantum = 128 * D
     n_pad = ((n + quantum - 1) // quantum) * quantum
     lens_pad = jnp.concatenate(
         [
@@ -1280,77 +1114,58 @@ def pool_window_for_mesh(
             jnp.zeros((n_pad - n,), jnp.int32),
         ]
     )
-    interpret = jax.devices()[0].platform not in ("tpu",)
-    # materialize Φ once for the whole pool, sharded on lanes (one small
-    # shard_map pass; same MTM_MARKOV_PRECOMP default/opt-out as the
-    # single-device pool) — every window then reads Φ only.  Long T
-    # (packed ACC build past T·s ≤ 512 of VMEM) always routes the
-    # canonical grid materialization; the packed batch is never built.
-    phi = None
-    phi_layout = "compact"
     phi_store = _resolve_phi_store_str(z.dtype)
     store = jnp.bfloat16 if phi_store == "bf16" else None
-    if not _packed_ok(T, d, l):
 
-        def _pad_lanes(a_t):
-            return jnp.concatenate(
-                [a_t, jnp.zeros((a_t.shape[0], n_pad - n), a_t.dtype)],
-                axis=1,
-            )
+    def _pad_lanes(a_t):
+        if a_t.shape[1] >= n_pad:
+            return a_t[:, :n_pad]
+        return jnp.concatenate(
+            [a_t, jnp.zeros((a_t.shape[0], n_pad - a_t.shape[1]), a_t.dtype)],
+            axis=1,
+        )
 
-        z_tp = _pad_lanes(jnp.transpose(z, (0, 2, 1)).reshape(T * d, n))
-        x_tp = _pad_lanes(jnp.transpose(x, (0, 2, 1)).reshape(T * l, n))
-        phi = jax.shard_map(
-            lambda zl, xl, ll: pallas_markov.markov_materialize_features_longT(
-                zl, xl, ll, T=T, d=d, l=l, store_dtype=store,
-                interpret=interpret
-            ),
+    def _shard(fn, *args):
+        return jax.shard_map(
+            fn,
             mesh=mesh,
-            in_specs=(P(None, "data"), P(None, "data"), P("data")),
+            in_specs=(P(None, "data"),) * (len(args) - 1) + (P("data"),),
             out_specs=P(None, "data"),
             check_vma=False,
-        )(z_tp, x_tp, lens_pad)
-        phi_layout = "canonical"
-        u = None
-    else:
+        )(*args)
+
+    if markov_packed_ok(T, d, l):
         if u is None:
             z_tp = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
             x_tp = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-            u = pallas_markov.pack_markov_u(
+            u = markov_phi.pack_markov_u(
                 z_tp, x_tp, T=T, d=d, l=l, pad_to=n_pad
             )
-        elif u.shape[1] < n_pad:
-            u = jnp.concatenate(
-                [
-                    u,
-                    jnp.zeros(
-                        (u.shape[0], n_pad - u.shape[1]), u.dtype
-                    ),
-                ],
-                axis=1,
-            )
-        if _os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1":
-            phi = jax.shard_map(
-                lambda u_l, lens_l: pallas_markov.markov_materialize_features(
-                    u_l,
-                    lens_l,
-                    T=T,
-                    d=d,
-                    l=l,
-                    dtype=u.dtype,
-                    store_dtype=store,
-                    interpret=interpret,
-                ),
-                mesh=mesh,
-                in_specs=(P(None, "data"), P("data")),
-                out_specs=P(None, "data"),
-                check_vma=False,
-            )(u, lens_pad)
-    if phi is not None and phi_store == "i16":
+        phi = _shard(
+            lambda u_l, lens_l: markov_phi.markov_materialize_features(
+                u_l, lens_l, T=T, d=d, l=l, dtype=u.dtype, store_dtype=store
+            ),
+            _pad_lanes(u),
+            lens_pad,
+        )
+        phi_layout = "compact"
+    else:
+        z_tp = _pad_lanes(jnp.transpose(z, (0, 2, 1)).reshape(T * d, n))
+        x_tp = _pad_lanes(jnp.transpose(x, (0, 2, 1)).reshape(T * l, n))
+        phi = _shard(
+            lambda zl, xl, ll: markov_phi.markov_materialize_features_longT(
+                zl, xl, ll, T=T, d=d, l=l, store_dtype=store
+            ),
+            z_tp,
+            x_tp,
+            lens_pad,
+        )
+        phi_layout = "canonical"
+    if phi_store == "i16":
         # quantize the GLOBAL Φ at host level (scales over all lanes ⇒
         # storage bit-identical to the single-device pool); the int16
         # payload stays lane-sharded through the window's phi_spec
-        phi = pallas_markov.quantize_phi(phi)
+        phi = markov_phi.quantize_phi(phi)
 
     def window(stack, assigns, status, iters, force):
         return _pool_window_shardmap(
@@ -1360,7 +1175,6 @@ def pool_window_for_mesh(
             iters,
             force,
             lens_pad,
-            u,
             phi,
             mesh=mesh,
             T=T,

@@ -1,10 +1,15 @@
 """Host-side utilities: NaN-shape tooling, transforms, plotting, adapters,
-survival/LME statistics, tracing and checkpointing."""
+survival/LME statistics, tracing and checkpointing.
 
-from multimodal_trajectory_modeling_tpu.utils import (  # noqa: F401
-    lme,
-    post_hoc,
-    state_space,
-    survival,
-    trace,
-)
+Submodules load on first attribute access: several of them need pandas,
+matplotlib or scikit-learn, which the training path does not."""
+
+import importlib
+
+_SUBMODULES = ("lme", "post_hoc", "state_space", "survival", "trace")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

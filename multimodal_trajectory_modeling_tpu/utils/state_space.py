@@ -14,16 +14,21 @@ import re
 import string
 
 import jax.numpy as jnp
-import matplotlib.pyplot as plt
 import numpy as np
-import pandas as pd
 import scipy.stats as sp_stats
 
 from multimodal_trajectory_modeling_tpu import ops
 
-plt.rcParams["figure.autolayout"] = True
-plt.rcParams["legend.loc"] = "upper right"
-plt.rcParams["font.family"] = "serif"
+
+def _pyplot():
+    """matplotlib's pyplot with this module's style — imported on first
+    plot, so the numeric utilities need no matplotlib."""
+    import matplotlib.pyplot as plt
+
+    plt.rcParams["figure.autolayout"] = True
+    plt.rcParams["legend.loc"] = "upper right"
+    plt.rcParams["font.family"] = "serif"
+    return plt
 
 CLUSTER_COLORS = (
     "#0072CE",
@@ -249,6 +254,7 @@ def summarize_metric_vs_cluster(
     names: list = None, cluster_ordering=None,
 ) -> None:
     """Print per-cluster means and pairwise two-sided t-test p-values."""
+    import pandas as pd
     n_clusters = len(set(cluster_assignment))
     ordered = cluster_ordering or string.ascii_uppercase[:n_clusters]
     assert len(cluster_assignment) == metric.shape[0]
@@ -282,6 +288,7 @@ def _despine(ax):
 
 def _new_axes(**subplots_kwargs):
     """One despined axes, the house style for every figure here."""
+    plt = _pyplot()
     fig, ax = plt.subplots(**subplots_kwargs)
     _despine(ax)
     return fig, ax
@@ -302,6 +309,7 @@ def plot_metric_vs_clusters_over_time(
 ) -> None:
     """Mean ± 1 s.e.m. of a metric per cluster over time (reference
     :494-580)."""
+    plt = _pyplot()
     n_steps = metric.shape[0]
     assert len(assignments) == metric.shape[1]
     n_clusters = len(set(assignments))
@@ -354,6 +362,7 @@ def histograms_by_cluster(
 ) -> None:
     """Grid of overlapping per-cluster histograms, optionally with Gaussian
     overlays from model moments (reference :583-746)."""
+    plt = _pyplot()
     c_labels = cluster_ordering or sorted(np.unique(clusters).tolist())
     fig, axs = plt.subplots(nrows, ncols, layout="constrained")
     panels = np.atleast_2d(axs).reshape(nrows, ncols).ravel()
@@ -432,6 +441,7 @@ def pies_by_cluster(
     halo_colors=None,
 ) -> None:
     """Per-cluster pie charts of category composition (reference :798-925)."""
+    plt = _pyplot()
     cluster_labels = cluster_ordering or sorted(np.unique(clusters).tolist())
     category_labels = category_ordering or sorted(np.unique(categories).tolist())
     nrows = nrows or len(cluster_labels)
@@ -479,6 +489,7 @@ def pie(
     show: bool = False, legend_anchor=(1.2, 1.0), colors=CLUSTER_COLORS,
 ):
     """Single pie of cluster prevalences (reference :928-984)."""
+    plt = _pyplot()
     labels = cluster_ordering or sorted(np.unique(assignments).tolist())
     assert set(labels) == set(assignments)
     fig, ax = plt.subplots(layout="constrained")
@@ -550,6 +561,7 @@ def plot_weighted_means_2d_trajectories(
     rather than an optimizer, and the per-cell densities from the closed-form
     2-D Gaussian.
     """
+    plt = _pyplot()
     fig, ax = _new_axes()
     ax.set(xlim=xlim, ylim=ylim)
 

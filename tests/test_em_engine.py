@@ -184,9 +184,9 @@ def test_model_loglik_matches_direct_sum():
 
 
 def test_train_em_sorted_matches_train_em():
-    """The pattern-sorted production path must reproduce train_em exactly
-    in f64: same statuses, same assignments (modulo the sort permutation),
-    same parameters."""
+    """train(fast=True)'s dense route (train_em with per-pattern
+    precomputed inverses) must reproduce the default train_em exactly in
+    f64: same statuses, same assignments, same parameters."""
     z, x, labels, true = _make_mixture_data(seed=3, n=400, T=6)
     rng = np.random.default_rng(2)
     lens = rng.choice([3, 5, 6], size=400)
@@ -202,23 +202,13 @@ def test_train_em_sorted_matches_train_em():
         params0, assign0, jnp.asarray(z), jnp.asarray(x), v, patterns, pid,
         n_steps=50,
     )
-
-    pid_np = np.asarray(pid)
-    order = np.argsort(pid_np, kind="stable")
-    sizes = tuple(int(s) for s in np.bincount(pid_np, minlength=patterns.shape[0]))
-    p_s, a_s, it_s, st_s = em.train_em_sorted(
-        params0,
-        assign0[order],
-        jnp.asarray(z[:, order]),
-        jnp.asarray(x[:, order]),
-        v[jnp.asarray(order)],
-        patterns,
-        sizes=sizes,
-        n_steps=50,
+    p_s, a_s, it_s, st_s = em.train_em(
+        params0, assign0, jnp.asarray(z), jnp.asarray(x), v, patterns, pid,
+        n_steps=50, method="inverse",
     )
     assert int(st_ref) == int(st_s)
     assert int(it_ref) == int(it_s)
-    np.testing.assert_array_equal(np.asarray(a_ref)[order], np.asarray(a_s))
+    np.testing.assert_array_equal(np.asarray(a_ref), np.asarray(a_s))
     for fa, fb in zip(p_ref, p_s):
         np.testing.assert_allclose(
             np.asarray(fa), np.asarray(fb), rtol=1e-9, atol=1e-10
@@ -263,8 +253,9 @@ def test_train_em_markov_matches_train_em():
 
 @pytest.mark.slow
 def test_train_em_markov_grid_kernel_regime():
-    """T=20 routes the grid-over-T kernels inside emstep_markov — the
-    whole training loop must still reproduce train_em exactly in f64."""
+    """T=20 routes the canonical (long-T) Φ layout inside train_em_markov
+    — the whole training loop must still reproduce train_em exactly in
+    f64."""
     z, x, labels, true = _make_mixture_data(seed=5, n=220, T=20)
     rng = np.random.default_rng(7)
     lens = rng.choice([10, 16, 20], size=220)
@@ -391,38 +382,3 @@ def test_train_em_masked_kalman_all_nan_instance():
         np.testing.assert_allclose(
             np.asarray(fa), np.asarray(fb), rtol=1e-9, atol=1e-10
         )
-
-
-def test_train_em_masked_kalman_pallas_interpret_route():
-    """The FULL packed trainer loop through the Pallas filter kernel
-    (interpret mode — the exact program the TPU route compiles) must
-    reproduce the XLA-scan route bit-for-bit in f64: same status,
-    iterations, assignments, parameters and objective."""
-    z, x, labels, true = _make_mixture_data(seed=21, n=300, T=6)
-    rng = np.random.default_rng(9)
-    z[rng.random(z.shape) < 0.2] = np.nan
-    x[rng.random(x.shape) < 0.2] = np.nan
-    C, d, l = 2, 2, 3
-    params0 = _random_init_params(rng, C, d, l)
-    assign0 = jnp.asarray(rng.integers(0, C, size=300), jnp.int32)
-
-    zj, xj = jnp.asarray(z), jnp.asarray(x)
-    p_x, a_x, it_x, st_x = em.train_em_masked_kalman(
-        params0, assign0, zj, xj, n_steps=50, pallas_mode="off"
-    )
-    p_p, a_p, it_p, st_p = em.train_em_masked_kalman(
-        params0, assign0, zj, xj, n_steps=50, pallas_mode="interpret"
-    )
-    assert int(st_x) == int(st_p) and int(it_x) == int(it_p)
-    np.testing.assert_array_equal(np.asarray(a_x), np.asarray(a_p))
-    for fa, fb in zip(p_x, p_p):
-        np.testing.assert_allclose(
-            np.asarray(fa), np.asarray(fb), rtol=1e-12, atol=1e-13
-        )
-    q_x = em.complete_data_loglik_masked_kalman(
-        p_x, zj, xj, pallas_mode="off"
-    )
-    q_p = em.complete_data_loglik_masked_kalman(
-        p_p, zj, xj, pallas_mode="interpret"
-    )
-    np.testing.assert_allclose(float(q_x), float(q_p), rtol=1e-12)

@@ -1,8 +1,7 @@
-"""The R-restart fused Markov EM path must equal R separate
-single-restart runs exactly — same per-iteration outputs, same training
-trajectories, same statuses/iteration counts — while paying the batch
-read and feature build once (ops/pallas_markov.py:
-markov_em_fused_packed_multi)."""
+"""The R-restart Markov EM path must equal R separate single-restart runs
+exactly — same per-iteration outputs, same training trajectories, same
+statuses/iteration counts — while reading the feature matrix Φ once
+(ops/markov_phi.py:markov_em_from_features_multi)."""
 
 import numpy as np
 import jax
@@ -10,7 +9,7 @@ import jax.numpy as jnp
 
 from multimodal_trajectory_modeling_tpu.models import em
 from multimodal_trajectory_modeling_tpu.ops import markov as mops
-from multimodal_trajectory_modeling_tpu.ops import pallas_markov
+from multimodal_trajectory_modeling_tpu.ops import markov_phi
 
 
 def _mixture_batch(seed, C, T, n, d, l, min_len=2):
@@ -44,37 +43,37 @@ def _stack(params_list):
     return jax.tree.map(lambda *ps: jnp.stack(ps), *params_list)
 
 
+def _phi(z, x, lens, T, d, l):
+    n = z.shape[1]
+    z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
+    x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
+    u = markov_phi.pack_markov_u(z_t, x_t, T=T, d=d, l=l, pad_to=128)
+    return markov_phi.markov_materialize_features(u, lens, T=T, d=d, l=l)
+
+
+def _weights(p):
+    Wg = mops.markov_em_weights(p.m, p.S, p.A, p.G, p.H, p.L)
+    return Wg.at[:, -1].add(jnp.log(p.pi))
+
+
 def test_packed_multi_kernel_matches_single():
-    """One multi-kernel call (R=4) must reproduce 4 single-kernel calls
-    exactly in f64 interpret mode: assignments, counts, switches, g
-    statistics and objectives."""
+    """One R-restart Φ pass (R=4) must reproduce 4 single-restart passes
+    exactly in f64: assignments, counts, switches, g statistics and
+    objectives."""
     rng = np.random.default_rng(0)
     C, T, n, d, l, R = 3, 6, 300, 2, 3, 4
     z, x, lens = _mixture_batch(1, C, T, n, d, l)
-    z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
+    phi = _phi(z, x, lens, T, d, l)
     params = [_params_one(rng, C, d, l) for _ in range(R)]
     prev = jnp.asarray(rng.integers(0, C, size=(R, n)), jnp.int32)
-
-    Wgs = []
-    singles = []
-    for r in range(R):
-        p = params[r]
-        Wg = mops.markov_em_weights(p.m, p.S, p.A, p.G, p.H, p.L)
-        Wg = Wg.at[:, -1].add(jnp.log(p.pi))
-        Wgs.append(Wg)
-        singles.append(
-            pallas_markov.markov_em_fused_packed(
-                u, lens, prev[r], Wg, T=T, d=d, l=l, interpret=True
-            )
-        )
-
-    a, c, w, g, o = pallas_markov.markov_em_fused_packed_multi(
-        u, lens, prev, jnp.stack(Wgs), T=T, d=d, l=l, interpret=True
+    Wgs = [_weights(p) for p in params]
+    a, c, w, g, o = markov_phi.markov_em_from_features_multi(
+        phi, lens, prev, jnp.stack(Wgs), T=T, d=d, l=l
     )
     for r in range(R):
-        a1, c1, w1, g1, o1 = singles[r]
+        a1, c1, w1, g1, o1 = markov_phi.markov_em_from_features(
+            phi, lens, prev[r], Wgs[r], T=T, d=d, l=l
+        )
         np.testing.assert_array_equal(np.asarray(a[r]), np.asarray(a1))
         np.testing.assert_array_equal(np.asarray(c[r]), np.asarray(c1))
         assert int(w[r]) == int(w1)
@@ -92,24 +91,16 @@ def test_packed_multi_kernel_prev_mode():
     rng = np.random.default_rng(2)
     C, T, n, d, l, R = 2, 5, 200, 3, 2, 3
     z, x, lens = _mixture_batch(3, C, T, n, d, l)
-    z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
+    phi = _phi(z, x, lens, T, d, l)
     params = [_params_one(rng, C, d, l) for _ in range(R)]
     prev = jnp.asarray(rng.integers(0, C, size=(R, n)), jnp.int32)
-
-    Wgs = []
-    for p in params:
-        Wg = mops.markov_em_weights(p.m, p.S, p.A, p.G, p.H, p.L)
-        Wgs.append(Wg.at[:, -1].add(jnp.log(p.pi)))
-    a, c, _w, g, _o = pallas_markov.markov_em_fused_packed_multi(
-        u, lens, prev, jnp.stack(Wgs), T=T, d=d, l=l,
-        assign_mode="prev", interpret=True,
+    Wgs = [_weights(p) for p in params]
+    a, c, _w, g, _o = markov_phi.markov_em_from_features_multi(
+        phi, lens, prev, jnp.stack(Wgs), T=T, d=d, l=l, assign_mode="prev"
     )
     for r in range(R):
-        a1, c1, _w1, g1, _o1 = pallas_markov.markov_em_fused_packed(
-            u, lens, prev[r], Wgs[r], T=T, d=d, l=l,
-            assign_mode="prev", interpret=True,
+        a1, c1, _w1, g1, _o1 = markov_phi.markov_em_from_features(
+            phi, lens, prev[r], Wgs[r], T=T, d=d, l=l, assign_mode="prev"
         )
         np.testing.assert_array_equal(np.asarray(a[r]), np.asarray(a1))
         np.testing.assert_array_equal(np.asarray(c[r]), np.asarray(c1))
@@ -155,7 +146,7 @@ def test_complete_data_loglik_markov_multi_matches_single():
     z, x, lens = _mixture_batch(7, C, T, n, d, l)
     z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
     x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
+    u = markov_phi.pack_markov_u(z_t, x_t, T=T, d=d, l=l)
     params = [_params_one(rng, C, d, l) for _ in range(R)]
     objs = em.complete_data_loglik_markov_multi(
         _stack(params), lens, u, T=T
@@ -279,44 +270,32 @@ def test_pool_edge_cases():
 
 
 def test_from_features_multi_matches_packed_multi():
-    """The R-restart materialized-feature kernel must reproduce the
-    packed multi kernel in f64 interpret mode — argmax with a mixed
-    force_prev mask, and pure prev mode."""
+    """The R-restart Φ pass with a mixed force_prev mask must give forced
+    restarts the prev-mode result (incoming assignment, zero switches,
+    zero objective) and the others the argmax result — each equal to a
+    single-restart pass in that mode (f64)."""
     rng = np.random.default_rng(11)
     C, T, n, d, l, R = 3, 6, 300, 2, 3, 4
     z, x, lens = _mixture_batch(12, C, T, n, d, l)
-    z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
-    x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
-    u = pallas_markov.pack_markov_u(z_t, x_t, T=T, d=d, l=l, pad_to=128)
-    phi = pallas_markov.markov_materialize_features(
-        u, lens, T=T, d=d, l=l, interpret=True, block_n=128
-    )
+    phi = _phi(z, x, lens, T, d, l)
     params = [_params_one(rng, C, d, l) for _ in range(R)]
     prev = jnp.asarray(rng.integers(0, C, size=(R, n)), jnp.int32)
-    Wg = jnp.stack(
-        [
-            mops.markov_em_weights(
-                p.m, p.S, p.A, p.G, p.H, p.L
-            ).at[:, -1].add(jnp.log(p.pi))
-            for p in params
-        ]
-    )
+    Wg = jnp.stack([_weights(p) for p in params])
     force = jnp.asarray([0, 1, 0, 1], jnp.int32)
-    for mode, fp in (("argmax", force), ("prev", None)):
-        a0, c0, w0, g0, o0 = pallas_markov.markov_em_fused_packed_multi(
-            u, lens, prev, Wg, T=T, d=d, l=l,
-            assign_mode=mode, force_prev=fp, interpret=True, block_n=128,
+    a, c, w, g, o = markov_phi.markov_em_from_features_multi(
+        phi, lens, prev, Wg, T=T, d=d, l=l, force_prev=force
+    )
+    for r in range(R):
+        mode = "prev" if int(force[r]) else "argmax"
+        a1, c1, w1, g1, o1 = markov_phi.markov_em_from_features(
+            phi, lens, prev[r], Wg[r], T=T, d=d, l=l, assign_mode=mode
         )
-        a1, c1, w1, g1, o1 = pallas_markov.markov_em_from_features_multi(
-            phi, lens, prev, Wg, T=T, d=d, l=l,
-            assign_mode=mode, force_prev=fp, interpret=True, block_n=128,
-        )
-        np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-        np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-        np.testing.assert_array_equal(np.asarray(w0), np.asarray(w1))
+        np.testing.assert_array_equal(np.asarray(a[r]), np.asarray(a1))
+        np.testing.assert_array_equal(np.asarray(c[r]), np.asarray(c1))
+        assert int(w[r]) == int(w1)
         np.testing.assert_allclose(
-            np.asarray(g1), np.asarray(g0), rtol=1e-12, atol=1e-12
+            np.asarray(g[r]), np.asarray(g1), rtol=1e-12, atol=1e-12
         )
         np.testing.assert_allclose(
-            np.asarray(o1), np.asarray(o0), rtol=1e-12, atol=1e-12
+            float(o[r]), float(o1), rtol=1e-12, atol=1e-12
         )

@@ -302,8 +302,8 @@ def test_rng_replication_of_constructor():
 
 @pytest.mark.slow
 def test_train_fast_matches_default(synth):
-    """train(fast=True) — the pattern-sorted fused-kernel path — must equal
-    train() exactly in f64, including the unsort of assignments."""
+    """train(fast=True) — the Markov Φ route for these suffix lengths —
+    must equal train() exactly in f64."""
     rng = np.random.default_rng(9)
     z = synth["z"].copy()
     x = synth["x"].copy()
@@ -369,7 +369,7 @@ def test_verbose_multistart_transcript_and_same_winner(synth, capsys):
 
 @pytest.mark.slow
 def test_fast_multistart_matches_default(synth):
-    """fast=True (pattern-sorted fused-kernel candidate loop) must replay
+    """fast=True (the fast candidate loop) must replay
     the reference multistart protocol exactly in f64: same winner, same
     assignments, same objective as the vmapped default path."""
     np.random.seed(1234)
@@ -406,8 +406,8 @@ def test_fast_multistart_matches_default(synth):
 @pytest.mark.slow
 def test_train_fast_interior_missingness_falls_back(synth):
     """Interior (non-suffix) missingness must fail the suffix gate and
-    route the pattern-sorted dense path — still exactly equal to the
-    default path in f64."""
+    route the dense path with per-pattern inverses — still exactly equal
+    to the default path in f64."""
     rng = np.random.default_rng(11)
     z = synth["z"].copy()
     x = synth["x"].copy()
@@ -502,7 +502,6 @@ def test_long_T_suffix_inference_routes_markov(monkeypatch):
             mdl._stacked_params(),
             jnp.asarray(z),
             jnp.asarray(x),
-            pallas_mode="off",
         )
     )
     np.testing.assert_allclose(ll, oracle, rtol=1e-8, atol=1e-8)

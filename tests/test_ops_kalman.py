@@ -202,7 +202,7 @@ def test_observed_kalman_long_T_masked_route():
     )
     want = np.asarray(
         kalman.kalman_observed_logliks(
-            jnp.asarray(x), jnp.asarray(lens), m, S, A, G, H, L, unroll=False
+            jnp.asarray(x), jnp.asarray(lens), m, S, A, G, H, L
         )
     )
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
@@ -283,44 +283,6 @@ def test_split_step_equals_combined_step():
             np.testing.assert_allclose(np.asarray(ll2), 0.0, atol=1e-13)
 
 
-def test_pallas_masked_kalman_matches_xla():
-    """The Pallas grid kernel (interpret mode, f64) must reproduce the
-    scalarized XLA masked filter on arbitrary interior missingness —
-    including n not a multiple of the row block, T not a multiple of the
-    chunk, fully-missing instances, and C=1."""
-    from multimodal_trajectory_modeling_tpu.ops.pallas_kalman import (
-        kalman_masked_logliks_pallas,
-    )
-
-    rng = np.random.default_rng(17)
-    for (T, n, d, l, C, tc, bc) in [
-        (3, 37, 2, 1, 1, 8, None),
-        (9, 1100, 2, 1, 3, 4, 128),  # 2 row blocks, T_pad > T
-        (17, 130, 4, 3, 2, 8, None),
-    ]:
-        z = rng.normal(size=(T, n, d))
-        x = rng.normal(size=(T, n, l))
-        z[rng.random(size=z.shape) < 0.3] = np.nan
-        x[rng.random(size=x.shape) < 0.3] = np.nan
-        z[:, 0] = np.nan
-        x[:, 0] = np.nan
-        m = rng.normal(size=(C, d))
-        A = rng.normal(scale=0.3, size=(C, d, d))
-        H = rng.normal(size=(C, d, l))
-        S = np.stack([np.eye(d) * 0.8] * C)
-        G = np.stack([np.eye(d) * 0.5] * C)
-        L = np.stack([np.eye(l) * 0.4 + 0.1] * C)
-        args = list(map(jnp.asarray, (z, x, m, S, A, G, H, L)))
-        want = np.asarray(kalman.kalman_masked_logliks(*args))
-        got = np.asarray(
-            kalman_masked_logliks_pallas(
-                *args, t_chunk=tc, block_cols=bc, interpret=True
-            )
-        )
-        assert got[:, 0] == pytest.approx(0.0, abs=0.0)
-        np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
-
-
 def _interior_problem(seed, C=2, T=8, n=400, d=3, l=2):
     import jax
 
@@ -349,13 +311,13 @@ def _interior_problem(seed, C=2, T=8, n=400, d=3, l=2):
     return jnp.asarray(z), jnp.asarray(x), one_params, rng
 
 
-@pytest.mark.parametrize("mode", ["off", "interpret"])
-def test_masked_kalman_pool_matches_standalone(mode):
+@pytest.mark.parametrize("sync_every", [3, 1])
+def test_masked_kalman_pool_matches_standalone(sync_every):
     """The masked-filter slot pool (R·C parameter rows through one
     filter pass + one mstep_multi statistics read) must reproduce
     per-candidate standalone train_em_masked_kalman runs — refills,
     force_prev insertion and capped/converged statuses included (f64;
-    both the XLA filter and the Pallas kernel in interpret mode)."""
+    multi-iteration windows and per-iteration host syncs)."""
     import jax
 
     zj, xj, one_params, rng = _interior_problem(3)
@@ -369,13 +331,12 @@ def test_masked_kalman_pool_matches_standalone(mode):
     refs = [
         em.train_em_masked_kalman(
             plist[i], jnp.asarray(alist[i]), zj, xj,
-            n_steps=12, pallas_mode=mode,
+            n_steps=12,
         )
         for i in range(n_cand)
     ]
     got = em.train_em_masked_kalman_pool(
-        plist, alist, zj, xj, R=2, n_steps=12, sync_every=3,
-        pallas_mode=mode,
+        plist, alist, zj, xj, R=2, n_steps=12, sync_every=sync_every,
     )
     assert len(got) == n_cand
     for i, ((pr, ar, ir, sr), (pg, ag, ig, sg)) in enumerate(

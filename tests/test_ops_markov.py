@@ -119,7 +119,7 @@ def test_suffix_mask_helpers():
 
 
 def test_markov_assign_kernel_matches_logliks():
-    """The fused Pallas Markov-assign kernel (interpret mode) must equal
+    """The Markov E step (``em.estep_assign_markov``) must equal
     argmax(log pi + markov logliks), counts and switches exactly."""
     from multimodal_trajectory_modeling_tpu.models import em
 
@@ -138,9 +138,7 @@ def test_markov_assign_kernel_matches_logliks():
     z_t = jnp.asarray(np.asarray(z).transpose(0, 2, 1).reshape(T * d, n))
     x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
     z_t = jnp.where(jnp.isfinite(z_t), z_t, jnp.nan)
-    a, c, w = em.estep_assign_markov(
-        params, z_t, x_t, lens, prev, T=T, interpret=True
-    )
+    a, c, w = em.estep_assign_markov(params, z_t, x_t, lens, prev, T=T)
     np.testing.assert_array_equal(np.asarray(a), want)
     np.testing.assert_array_equal(
         np.asarray(c), np.bincount(want, minlength=C)
@@ -149,8 +147,9 @@ def test_markov_assign_kernel_matches_logliks():
 
 
 def test_emstep_markov_xla_matches_pallas():
-    """The scan-based XLA EM step must equal the fused Pallas kernel EM
-    step exactly in f64 (same assignments, counts, switches, params)."""
+    """The Φ-pass EM step (``em.emstep_markov``) must equal the plain
+    row-major reference step exactly in f64 (same assignments, counts,
+    switches, params)."""
     from multimodal_trajectory_modeling_tpu.models import em
 
     rng = np.random.default_rng(6)
@@ -163,9 +162,7 @@ def test_emstep_markov_xla_matches_pallas():
 
     z_t = jnp.asarray(np.asarray(z).transpose(0, 2, 1).reshape(T * d, n))
     x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
-    p1, a1, c1, w1 = em.emstep_markov(
-        params, z_t, x_t, lens, prev, T=T, interpret=True
-    )
+    p1, a1, c1, w1 = em.emstep_markov(params, z_t, x_t, lens, prev, T=T)
     p2, a2, c2, w2 = em.emstep_markov_xla(params, z, x, lens, prev)
     np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
     np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
@@ -295,55 +292,43 @@ def test_markov_f32_long_T_accuracy():
 
 
 def test_markov_em_fused_longT_matches_small_T_kernel():
-    """The grid-over-T fused EM kernels (arbitrary T, T-independent
-    compile) must reproduce the static-unroll kernel exactly in f64
-    interpret mode: assign, counts, switches, g statistics, objective."""
+    """The canonical (long-T) Φ layout must reproduce the compact layout
+    exactly in f64: assign, counts, switches, g statistics, objective —
+    in argmax and prev modes."""
     from multimodal_trajectory_modeling_tpu.ops import (
         markov as mops,
-        pallas_markov as pm,
+        markov_phi as pm,
     )
 
     rng = np.random.default_rng(21)
     C, T, n, d, l = 3, 6, 300, 2, 3
     z, x, lens, params_t = _mixture(22, C=C, T=T, n=n, d=d, l=l)
-    m, S, A, G, H, L = params_t
     pi = jnp.asarray(rng.dirichlet(np.ones(C)))
-    W1, W2, W3 = mops.markov_cluster_weights_grouped(*params_t)
-    W3 = W3.at[:, -1].add(jnp.log(pi))
     Wg = mops.markov_em_weights(*params_t)
     Wg = Wg.at[:, -1].add(jnp.log(pi))
     prev = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
     z_t = jnp.asarray(np.asarray(z).transpose(0, 2, 1).reshape(T * d, n))
     x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
-
-    a0, c0, w0, g0, o0 = pm.markov_em_fused(
-        z_t, x_t, lens, prev, Wg, T=T, d=d, l=l, interpret=True,
-        block_n=128,
+    u = pm.pack_markov_u(z_t, x_t, T=T, d=d, l=l, pad_to=128)
+    phi_c = pm.markov_materialize_features(u, lens, T=T, d=d, l=l)
+    phi_l = pm.markov_materialize_features_longT(
+        z_t, x_t, lens, T=T, d=d, l=l
     )
-    a1, c1, w1, g1, o1 = pm.markov_em_fused_longT(
-        z_t, x_t, lens, prev, W1, W2, W3, T=T, d=d, l=l,
-        interpret=True, block_n=128,
-    )
-    np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-    np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-    assert int(w0) == int(w1)
-    np.testing.assert_allclose(
-        np.asarray(g1), np.asarray(g0), rtol=1e-9, atol=1e-9
-    )
-    np.testing.assert_allclose(float(o1), float(o0), rtol=1e-12)
-    # prev mode: stats under the incoming assignment
-    a2, c2, w2, g2, o2 = pm.markov_em_fused(
-        z_t, x_t, lens, prev, Wg, T=T, d=d, l=l, interpret=True,
-        assign_mode="prev", block_n=128,
-    )
-    a3, c3, w3, g3, o3 = pm.markov_em_fused_longT(
-        z_t, x_t, lens, prev, W1, W2, W3, T=T, d=d, l=l,
-        interpret=True, assign_mode="prev", block_n=128,
-    )
-    np.testing.assert_array_equal(np.asarray(a2), np.asarray(a3))
-    np.testing.assert_allclose(
-        np.asarray(g3), np.asarray(g2), rtol=1e-9, atol=1e-9
-    )
+    for mode in ("argmax", "prev"):
+        a0, c0, w0, g0, o0 = pm.markov_em_from_features(
+            phi_c, lens, prev, Wg, T=T, d=d, l=l, assign_mode=mode
+        )
+        a1, c1, w1, g1, o1 = pm.markov_em_from_features(
+            phi_l, lens, prev, Wg, T=T, d=d, l=l, assign_mode=mode,
+            layout="canonical",
+        )
+        np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
+        np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
+        assert int(w0) == int(w1)
+        np.testing.assert_allclose(
+            np.asarray(g1), np.asarray(g0), rtol=1e-9, atol=1e-9
+        )
+        np.testing.assert_allclose(float(o1), float(o0), rtol=1e-12)
 
 
 def test_one_dispatch_fori_loop_matches_host_chained_steps():
@@ -393,15 +378,33 @@ def test_one_dispatch_fori_loop_matches_host_chained_steps():
         )
 
 
+def _reference_phi_pass(feats, Wg, prev, mode):
+    """Plain NumPy Φ pass over row-major canonical features (n, F)."""
+    feats = np.asarray(feats)
+    prev = np.asarray(prev)
+    C = Wg.shape[0]
+    scores = feats @ np.asarray(Wg).T  # (n, C)
+    a = prev if mode == "prev" else np.argmax(scores, axis=1)
+    onehot = (a[:, None] == np.arange(C)[None, :]).astype(feats.dtype)
+    obj = 0.0 if mode == "prev" else float(np.sum(np.max(scores, axis=1)))
+    return (
+        a,
+        onehot.sum(axis=0).astype(np.int64),
+        int(np.sum(a != prev)),
+        feats.T @ onehot,
+        obj,
+    )
+
+
 def test_markov_em_from_features_matches_packed():
-    """The materialized-feature route (one-time Φ build via
-    markov_materialize_features + per-iteration GEMM-only kernel) must
-    reproduce the packed shift-product kernel in f64 interpret mode —
-    both argmax and prev modes: assignment/counts/switches exactly,
-    statistics and objective to f64 reassociation tightness."""
+    """The compact-layout route (one-time Φ build via
+    markov_materialize_features + per-iteration Φ pass) must reproduce a
+    plain NumPy pass over the row-major canonical features in f64 — both
+    argmax and prev modes, lane padding included: assignment/counts/
+    switches exactly, statistics and objective to f64 reassociation."""
     from multimodal_trajectory_modeling_tpu.ops import (
         markov as mops,
-        pallas_markov as pm,
+        markov_phi as pm,
     )
 
     rng = np.random.default_rng(31)
@@ -414,33 +417,28 @@ def test_markov_em_from_features_matches_packed():
     z_t = jnp.asarray(np.asarray(z).transpose(0, 2, 1).reshape(T * d, n))
     x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
     u = pm.pack_markov_u(z_t, x_t, T=T, d=d, l=l, pad_to=128)
-    phi = pm.markov_materialize_features(
-        u, lens, T=T, d=d, l=l, interpret=True, block_n=128
-    )
+    phi = pm.markov_materialize_features(u, lens, T=T, d=d, l=l)
     Fc_pad, uniq, pos = pm.markov_compact_spec(T, d, l)
-    assert phi.shape[0] == Fc_pad and pos.shape[0] == Wg.shape[1]
+    assert phi.shape == (Fc_pad, 384) and pos.shape[0] == Wg.shape[1]
+    feats = mops.markov_em_features(z, x, lens)
     for mode in ("argmax", "prev"):
-        a0, c0, w0, g0, o0 = pm.markov_em_fused_packed(
-            u, lens, prev, Wg, T=T, d=d, l=l,
-            interpret=True, block_n=128, assign_mode=mode,
-        )
+        a0, c0, w0, g0, o0 = _reference_phi_pass(feats, Wg, prev, mode)
         a1, c1, w1, g1, o1 = pm.markov_em_from_features(
-            phi, lens, prev, Wg, T=T, d=d, l=l,
-            interpret=True, block_n=128, assign_mode=mode,
+            phi, lens, prev, Wg, T=T, d=d, l=l, assign_mode=mode,
         )
-        np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-        np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-        assert int(w0) == int(w1)
+        np.testing.assert_array_equal(a0, np.asarray(a1))
+        np.testing.assert_array_equal(c0, np.asarray(c1))
+        assert w0 == int(w1)
         np.testing.assert_allclose(
-            np.asarray(g1), np.asarray(g0), rtol=1e-12, atol=1e-12
+            np.asarray(g1), g0, rtol=1e-12, atol=1e-12
         )
-        np.testing.assert_allclose(float(o1), float(o0), rtol=1e-12)
+        np.testing.assert_allclose(float(o1), o0, rtol=1e-12)
 
 
 def test_train_em_markov_precompute_matches():
-    """train_em_markov with the materialized-feature loop must produce
-    the same trained parameters, assignment, iteration count and status
-    as the per-iteration shift-product build (f64)."""
+    """train_em_markov (materialized Φ, one Φ pass per iteration) must
+    produce the same trained parameters, assignment, iteration count and
+    status as the dense-joint oracle train_em (f64)."""
     from multimodal_trajectory_modeling_tpu.models import em
 
     C, T, n, d, l = 3, 6, 400, 2, 3
@@ -451,14 +449,17 @@ def test_train_em_markov_precompute_matches():
     )
     rng = np.random.default_rng(42)
     assign0 = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-    outs = {}
-    for pc in (False, True):
-        p, a, it, st = em.train_em_markov(
-            params0, assign0, z, x, lens, n_steps=20, precompute=pc
-        )
-        outs[pc] = (p, np.asarray(a), int(it), int(st))
-    p0, a0, it0, st0 = outs[False]
-    p1, a1, it1, st1 = outs[True]
+    v = em.pack_joint(z, x)
+    patterns, pid = ops.pattern_groups(np.asarray(v))
+    p0, a0, it0, st0 = em.train_em(
+        params0, assign0, z, x, v, jnp.asarray(patterns),
+        jnp.asarray(pid), n_steps=20,
+    )
+    p1, a1, it1, st1 = em.train_em_markov(
+        params0, assign0, z, x, lens, n_steps=20
+    )
+    a0, a1 = np.asarray(a0), np.asarray(a1)
+    it0, st0, it1, st1 = int(it0), int(st0), int(it1), int(st1)
     assert (it0, st0) == (it1, st1)
     np.testing.assert_array_equal(a0, a1)
     for leaf0, leaf1 in zip(jax.tree.leaves(p0), jax.tree.leaves(p1)):
@@ -468,31 +469,40 @@ def test_train_em_markov_precompute_matches():
 
 
 def test_suffix_logliks_markov_phi_route_matches_xla():
-    """The TPU inference route (grid-materialized canonical Φ + weight
-    GEMM) must equal the XLA slice-pair formulation exactly in f64 —
-    and both equal the dense masked marginal (the slice-pair side is
-    pinned against dense elsewhere)."""
+    """The suffix inference route (slice-pair formulation) must equal
+    the canonical Φ contracted with the E weights exactly in f64 — and
+    both equal the dense masked marginal (the slice-pair side is pinned
+    against dense elsewhere)."""
+    from multimodal_trajectory_modeling_tpu.ops import (
+        markov as mops,
+        markov_phi as pm,
+    )
+
     C, T, n, d, l = 3, 24, 150, 2, 2
     z, x, lens, params_t = _mixture(7, C=C, T=T, n=n, d=d, l=l)
     m, S, A, G, H, L = params_t
     params = em.MixtureParams(
         pi=jnp.ones(C) / C, m=m, S=S, A=A, G=G, H=H, L=L
     )
-    a = em.suffix_logliks_markov(params, z, x, lens, via_phi=False)
-    b = em.suffix_logliks_markov(params, z, x, lens, via_phi=True)
+    a = em.suffix_logliks_markov(params, z, x, lens)
+    z_t = jnp.transpose(z, (0, 2, 1)).reshape(T * d, n)
+    x_t = jnp.transpose(x, (0, 2, 1)).reshape(T * l, n)
+    phi = pm.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+    Wg = mops.markov_em_weights(*params_t)
+    b = Wg @ phi[: Wg.shape[1]]
     np.testing.assert_allclose(
         np.asarray(b), np.asarray(a), rtol=1e-12, atol=1e-12
     )
 
 
 def test_markov_materialize_features_longT_matches_xla_features():
-    """The grid-over-T feature-materialization kernel must equal the XLA
-    scan feature builder (ops/markov.py:markov_em_features) exactly in
-    f64 interpret mode, and the canonical-layout from-features iteration
-    must reproduce the grid-over-T fused EM kernel."""
+    """The long-T materializer must be the row-major feature builder
+    (ops/markov.py:markov_em_features) transposed with zero row padding,
+    and the canonical-layout Φ pass must reproduce the plain NumPy pass
+    over those features (f64)."""
     from multimodal_trajectory_modeling_tpu.ops import (
         markov as mops,
-        pallas_markov as pm,
+        markov_phi as pm,
     )
 
     rng = np.random.default_rng(51)
@@ -503,7 +513,7 @@ def test_markov_materialize_features_longT_matches_xla_features():
     x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
 
     phi = pm.markov_materialize_features_longT(
-        z_t, x_t, lens, T=T, d=d, l=l, block_n=128, interpret=True
+        z_t, x_t, lens, T=T, d=d, l=l
     )
     feats = mops.markov_em_features(z, x, lens)  # (n, F)
     F = feats.shape[1]
@@ -515,32 +525,23 @@ def test_markov_materialize_features_longT_matches_xla_features():
 
     Wg = mops.markov_em_weights(*params_t)
     Wg = Wg.at[:, -1].add(jnp.log(pi))
-    W1, W2, W3 = mops.markov_cluster_weights_grouped(*params_t)
-    W3 = W3.at[:, -1].add(jnp.log(pi))
     prev = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-    a0, c0, w0, g0, o0 = pm.markov_em_fused_longT(
-        z_t, x_t, lens, prev, W1, W2, W3, T=T, d=d, l=l,
-        interpret=True, block_n=128,
-    )
+    a0, c0, w0, g0, o0 = _reference_phi_pass(feats, Wg, prev, "argmax")
     a1, c1, w1, g1, o1 = pm.markov_em_from_features(
-        phi, lens, prev, Wg, T=T, d=d, l=l,
-        layout="canonical", interpret=True, block_n=128,
+        phi, lens, prev, Wg, T=T, d=d, l=l, layout="canonical",
     )
-    np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
-    np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-    assert int(w0) == int(w1)
-    np.testing.assert_allclose(
-        np.asarray(g1), np.asarray(g0), rtol=1e-9, atol=1e-9
-    )
-    np.testing.assert_allclose(float(o1), float(o0), rtol=1e-12)
+    np.testing.assert_array_equal(a0, np.asarray(a1))
+    np.testing.assert_array_equal(c0, np.asarray(c1))
+    assert w0 == int(w1)
+    np.testing.assert_allclose(np.asarray(g1), g0, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(float(o1), o0, rtol=1e-12)
 
 
 def test_markov_materialize_features_longT_narrow_store():
-    """The long-T materializer's narrow-store path (full-precision VMEM
-    accumulation, one cast at each block's final grid step) must be
-    bit-identical to casting the wide Φ — the bf16 Φ opt-in then behaves
-    the same on the grid-over-T route as on the packed route."""
-    from multimodal_trajectory_modeling_tpu.ops import pallas_markov as pm
+    """The long-T materializer's narrow-store path must be bit-identical
+    to casting the wide Φ — the bf16 Φ opt-in then behaves the same on
+    the canonical route as on the compact route."""
+    from multimodal_trajectory_modeling_tpu.ops import markov_phi as pm
 
     C, T, n, d, l = 2, 24, 260, 2, 3
     z, x, lens, _params_t = _mixture(71, C=C, T=T, n=n, d=d, l=l)
@@ -550,11 +551,10 @@ def test_markov_materialize_features_longT_narrow_store():
     x_t = jnp.transpose(x32, (0, 2, 1)).reshape(T * l, n)
 
     wide = pm.markov_materialize_features_longT(
-        z_t, x_t, lens, T=T, d=d, l=l, block_n=128, interpret=True
+        z_t, x_t, lens, T=T, d=d, l=l
     )
     narrow = pm.markov_materialize_features_longT(
-        z_t, x_t, lens, T=T, d=d, l=l, block_n=128,
-        store_dtype=jnp.bfloat16, interpret=True,
+        z_t, x_t, lens, T=T, d=d, l=l, store_dtype=jnp.bfloat16,
     )
     assert narrow.dtype == jnp.bfloat16
     np.testing.assert_array_equal(
@@ -564,9 +564,9 @@ def test_markov_materialize_features_longT_narrow_store():
 
 
 def test_train_em_markov_longT_precompute_matches():
-    """At T past the packed kernel's VMEM gate, train_em_markov's
-    precompute route (grid materialization + canonical from-features
-    iterations) must match the per-iteration grid-kernel path (f64)."""
+    """At T past the compact-layout gate, train_em_markov's canonical Φ
+    route must reproduce the exact masked-filter trainer, which equals
+    the dense marginal on suffix missingness (f64)."""
     from multimodal_trajectory_modeling_tpu.models import em
 
     C, T, n, d, l = 2, 80, 200, 3, 2  # T·s = 640 > 512 → longT route
@@ -577,14 +577,15 @@ def test_train_em_markov_longT_precompute_matches():
     )
     rng = np.random.default_rng(62)
     assign0 = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-    outs = {}
-    for pc in (False, True):
-        p, a, it, st = em.train_em_markov(
-            params0, assign0, z, x, lens, n_steps=8, precompute=pc
-        )
-        outs[pc] = (p, np.asarray(a), int(it), int(st))
-    p0, a0, it0, st0 = outs[False]
-    p1, a1, it1, st1 = outs[True]
+    assert not em.markov_packed_ok(T, d, l)
+    p0, a0, it0, st0 = em.train_em_masked_kalman(
+        params0, assign0, z, x, n_steps=8
+    )
+    p1, a1, it1, st1 = em.train_em_markov(
+        params0, assign0, z, x, lens, n_steps=8
+    )
+    a0, a1 = np.asarray(a0), np.asarray(a1)
+    it0, st0, it1, st1 = int(it0), int(st0), int(it1), int(st1)
     assert (it0, st0) == (it1, st1)
     np.testing.assert_array_equal(a0, a1)
     for leaf0, leaf1 in zip(jax.tree.leaves(p0), jax.tree.leaves(p1)):
@@ -595,7 +596,7 @@ def test_train_em_markov_longT_precompute_matches():
 
 @pytest.mark.slow
 def test_train_em_markov_multi_longT_matches_standalone():
-    """Past the packed kernel's T·s ≤ 512 gate the multi-restart trainer
+    """Past the compact layout's T·s ≤ 512 gate the multi-restart trainer
     must route the canonical-layout materialized features and reproduce
     per-restart standalone train_em_markov runs exactly (f64)."""
     from multimodal_trajectory_modeling_tpu.models import em
@@ -678,88 +679,3 @@ def test_train_em_markov_pool_longT_matches_standalone():
                 np.asarray(lg), np.asarray(lr), rtol=1e-9, atol=1e-12,
                 err_msg=f"cand {i}",
             )
-
-
-def test_precompute_env_toggle_takes_effect_in_process(monkeypatch):
-    """Flipping MTM_MARKOV_PRECOMP between same-shape calls in ONE
-    process must actually switch the route (the env is resolved by the
-    un-jitted wrapper, never inside a cached trace) and both routes must
-    agree within the documented tolerance."""
-    from unittest import mock
-
-    from multimodal_trajectory_modeling_tpu.models import em
-
-    C, T, n, d, l = 2, 5, 120, 2, 2
-    z, x, lens, params_t = _mixture(77, C=C, T=T, n=n, d=d, l=l)
-    m, S, A, G, H, L = params_t
-    params0 = em.MixtureParams(
-        pi=jnp.ones(C) / C, m=m, S=S, A=A, G=G, H=H, L=L
-    )
-    rng = np.random.default_rng(7)
-    assign0 = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-
-    seen = []
-    orig = em._markov_features
-
-    def spy(*args, **kwargs):
-        seen.append(kwargs.get("precompute"))
-        return orig(*args, **kwargs)
-
-    with mock.patch.object(em, "_markov_features", side_effect=spy):
-        monkeypatch.delenv("MTM_MARKOV_PRECOMP", raising=False)
-        p1, a1, i1, s1 = em.train_em_markov(
-            params0, assign0, z, x, lens, n_steps=10
-        )
-        monkeypatch.setenv("MTM_MARKOV_PRECOMP", "0")
-        p2, a2, i2, s2 = em.train_em_markov(
-            params0, assign0, z, x, lens, n_steps=10
-        )
-    # the wrapper resolved the env freshly on each call
-    assert seen == [True, False]
-    assert (int(i1), int(s1)) == (int(i2), int(s2))
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-    for q1, q2 in zip(jax.tree.leaves(p1), jax.tree.leaves(p2)):
-        np.testing.assert_allclose(
-            np.asarray(q2), np.asarray(q1), rtol=1e-9, atol=1e-12
-        )
-
-
-def test_from_features_block_n_fallback_divides():
-    """markov_em_from_features must pick a lane block that divides any
-    legal n_pad — a 1536-lane Φ (pad quantum 512) used to trip the
-    divisibility assert via the fixed 1024 fallback."""
-    from multimodal_trajectory_modeling_tpu.models import em
-    from multimodal_trajectory_modeling_tpu.ops import (
-        markov as mops,
-        pallas_markov as pm,
-    )
-
-    C, T, n, d, l = 2, 5, 1400, 2, 2  # canonical Φ pads to 1536 (q=512)
-    z, x, lens, params_t = _mixture(78, C=C, T=T, n=n, d=d, l=l)
-    m, S, A, G, H, L = params_t
-    z_t = jnp.asarray(np.asarray(z).transpose(0, 2, 1).reshape(T * d, n))
-    x_t = jnp.asarray(np.asarray(x).transpose(0, 2, 1).reshape(T * l, n))
-    phi = pm.markov_materialize_features_longT(
-        z_t, x_t, lens, T=T, d=d, l=l, interpret=True
-    )
-    # the library materializers pad to 2048; a direct caller may hand
-    # the kernel any 128-multiple lane width — slice down to 1536
-    # (valid lanes + zero pad lanes), which divides none of the
-    # preferred blocks
-    phi = phi[:, :1536]
-    Wg = mops.markov_em_weights(m, S, A, G, H, L)
-    Wg = Wg.at[:, -1].add(jnp.log(jnp.ones(C) / C))
-    rng = np.random.default_rng(9)
-    prev = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-    a, c, w, g, obj = pm.markov_em_from_features(
-        phi,
-        lens,
-        prev,
-        Wg,
-        T=T,
-        d=d,
-        l=l,
-        layout="canonical",
-        interpret=True,
-    )
-    assert a.shape == (n,) and np.isfinite(float(obj))

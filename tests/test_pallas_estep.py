@@ -1,12 +1,13 @@
-"""The fused Pallas E-step kernel must agree exactly with the XLA grouped
-path (run in interpret mode on the CPU test mesh; compiled on real TPU)."""
+"""The dense E step with per-pattern precomputed inverses
+(``em.estep_logliks(method="inverse")``, the route of ``train(fast=True)``
+for interior missingness) must agree with the triangular-solve and
+default routes, ragged pattern segments and any row order included."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from multimodal_trajectory_modeling_tpu import ops
 from multimodal_trajectory_modeling_tpu.models import em
-from multimodal_trajectory_modeling_tpu.ops import pallas_estep
 
 
 def _problem(seed=0, n=700, T=4, d=2, l=3, C=3):
@@ -19,134 +20,70 @@ def _problem(seed=0, n=700, T=4, d=2, l=3, C=3):
         x[Ln:, lens == Ln] = np.nan
     v = np.asarray(em.pack_joint(jnp.asarray(z), jnp.asarray(x)))
     patterns, pid = ops.pattern_groups(v)
-    means = rng.normal(size=(C, v.shape[1]))
-    covs = []
-    for _ in range(C):
-        Xm = rng.normal(size=(v.shape[1], v.shape[1]))
-        covs.append(Xm @ Xm.T / v.shape[1] + np.eye(v.shape[1]))
-    return (
-        jnp.asarray(v),
-        jnp.asarray(patterns),
-        jnp.asarray(pid),
-        jnp.asarray(means),
-        jnp.asarray(np.stack(covs)),
+    params = em.MixtureParams(
+        pi=jnp.asarray(rng.dirichlet(np.ones(C))),
+        m=jnp.asarray(rng.normal(size=(C, d))),
+        S=jnp.asarray(np.stack([np.eye(d) * 0.5] * C)),
+        A=jnp.asarray(rng.normal(scale=0.4, size=(C, d, d))),
+        G=jnp.asarray(np.stack([np.eye(d) * 0.3] * C)),
+        H=jnp.asarray(rng.normal(size=(C, d, l))),
+        L=jnp.asarray(np.stack([np.eye(l) * 0.4] * C)),
+    )
+    return params, jnp.asarray(v), jnp.asarray(patterns), np.asarray(pid), T
+
+
+def _logliks(params, v, patterns, pid, T, method):
+    return np.asarray(
+        em.estep_logliks(
+            params, v, patterns, jnp.asarray(pid), T=T, method=method
+        )
     )
 
 
 def test_fused_kernel_matches_grouped_xla():
-    v, patterns, pid, means, covs = _problem()
-    want = np.stack(
-        [
-            np.asarray(
-                ops.masked_mvn_logpdf_grouped(
-                    v, means[c], covs[c], patterns, pid, method="inverse"
-                )
-            )
-            for c in range(means.shape[0])
-        ]
-    )
-    got = np.asarray(
-        pallas_estep.estep_logliks_fused(
-            means, covs, v, patterns, pid, block_n=256
-        )
-    )
+    params, v, patterns, pid, T = _problem()
+    want = _logliks(params, v, patterns, pid, T, "solve")
+    got = _logliks(params, v, patterns, pid, T, "inverse")
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
 def test_fused_kernel_ragged_tail():
-    """n not divisible by the block size — padded rows must not leak."""
-    v, patterns, pid, means, covs = _problem(seed=1, n=333)
-    want = np.stack(
-        [
-            np.asarray(
-                ops.masked_mvn_logpdf_grouped(
-                    v, means[c], covs[c], patterns, pid, method="inverse"
-                )
-            )
-            for c in range(means.shape[0])
-        ]
-    )
-    got = np.asarray(
-        pallas_estep.estep_logliks_fused(
-            means, covs, v, patterns, pid, block_n=128
-        )
-    )
+    """Pattern segments of uneven, non-power-of-two sizes must not leak
+    into each other."""
+    params, v, patterns, pid, T = _problem(seed=1, n=333)
+    want = _logliks(params, v, patterns, pid, T, "solve")
+    got = _logliks(params, v, patterns, pid, T, "inverse")
     assert got.shape == want.shape == (3, 333)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
-def _sorted_problem(seed=2, n=415):
-    v, patterns, pid, means, covs = _problem(seed=seed, n=n)
-    order = np.argsort(np.asarray(pid), kind="stable")
-    v_s = v[order]
-    sizes = tuple(
-        int(c)
-        for c in np.bincount(np.asarray(pid), minlength=patterns.shape[0])
-    )
-    minv, const = pallas_estep.precompute_cluster_pattern_inverses(
-        means, covs, patterns
-    )
-    return v_s, patterns, sizes, means, covs, minv, const
-
-
 def test_assign_kernel_matches_logliks_argmax():
-    """The fused assign kernel (both memory layouts) must reproduce the
-    argmax/counts/switches computed from the materialized (C, n) logliks."""
+    """The E assignment and counts ``train_em`` derives from the
+    ``"inverse"`` log-likelihoods must equal a NumPy argmax/bincount."""
     rng = np.random.default_rng(7)
-    v_s, patterns, sizes, means, covs, minv, const = _sorted_problem(
-        seed=3, n=437
+    params, v, patterns, pid, T = _problem(seed=3, n=437)
+    C = params.pi.shape[0]
+    ll = _logliks(params, v, patterns, pid, T, "inverse")
+    want_assign = np.argmax(
+        np.log(np.asarray(params.pi))[:, None] + ll, axis=0
     )
-    C = means.shape[0]
-    n = v_s.shape[0]
-    pi = rng.dirichlet(np.ones(C))
-    prev = jnp.asarray(rng.integers(0, C, size=n), jnp.int32)
-    ll = pallas_estep.estep_logliks_pattern_sorted(
-        v_s, means, minv, const, sizes=sizes, block_n=128, interpret=True
+    a = em.assignments_from_logliks(params.pi, jnp.asarray(ll))
+    c = em.counts_from_assign(a, C)
+    np.testing.assert_array_equal(np.asarray(a), want_assign)
+    np.testing.assert_array_equal(
+        np.asarray(c), np.bincount(want_assign, minlength=C)
     )
-    want_assign = np.argmax(np.log(pi)[:, None] + np.asarray(ll), axis=0)
-    want_counts = np.bincount(want_assign, minlength=C)
-    want_switch = int(np.sum(want_assign != np.asarray(prev)))
-    for fn, vin in (
-        (pallas_estep.estep_assign_pattern_sorted, v_s),
-        (pallas_estep.estep_assign_pattern_sorted_t, v_s.T),
-    ):
-        a, c, w = fn(
-            vin,
-            prev,
-            means,
-            minv,
-            const,
-            jnp.log(jnp.asarray(pi)),
-            patterns,
-            sizes=sizes,
-            block_n=128,
-            interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(a), want_assign)
-        np.testing.assert_array_equal(np.asarray(c), want_counts)
-        assert int(w) == want_switch
+    prev = rng.integers(0, C, size=ll.shape[1])
+    assert int(jnp.sum(a != jnp.asarray(prev))) == int(
+        np.sum(want_assign != prev)
+    )
 
 
 def test_pattern_sorted_matches_unsorted():
-    """The pattern-sorted kernel must equal the per-row-select kernel after
-    applying the sort permutation (ragged segment tails included)."""
-    v, patterns, pid, means, covs = _problem(seed=2, n=415)
-    order = np.argsort(np.asarray(pid), kind="stable")
-    v_s = v[order]
-    sizes = tuple(
-        int(c) for c in np.bincount(np.asarray(pid), minlength=patterns.shape[0])
-    )
-    minv, const = pallas_estep.precompute_cluster_pattern_inverses(
-        means, covs, patterns
-    )
-    got = np.asarray(
-        pallas_estep.estep_logliks_pattern_sorted(
-            v_s, means, minv, const, sizes=sizes, block_n=128, interpret=True
-        )
-    )
-    want = np.asarray(
-        pallas_estep.estep_logliks_fused(
-            means, covs, v, patterns, pid, block_n=128
-        )
-    )[:, order]
+    """A batch sorted by pattern (per-pattern inverses) must give the
+    default route's values on the unsorted batch, permuted."""
+    params, v, patterns, pid, T = _problem(seed=2, n=415)
+    order = np.argsort(pid, kind="stable")
+    got = _logliks(params, v[order], patterns, pid[order], T, "inverse")
+    want = _logliks(params, v, patterns, pid, T, "auto")[:, order]
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)

@@ -492,11 +492,12 @@ def test_masked_kalman_shardmap_matches_unsharded(problem):
         np.testing.assert_allclose(
             np.asarray(fa), np.asarray(fb), rtol=1e-12, atol=1e-13
         )
-    # the TPU route — Pallas filter kernel per shard (interpret mode
-    # here) — must take the identical trajectory through shard_map
-    p_p, a_p, it_p, st_p = sharded_em.train_em_masked_kalman_shardmap(
-        params0, assign0, zj, xj, mesh=mesh, n_steps=25,
-        pallas_mode="interpret",
+    # a coarser mesh (2 shards) must take the identical trajectory
+    mesh2 = Mesh(np.asarray(jax.devices()[:2]), ("data",))
+    p_p, a_p, it_p, st_p = sharded_em.train_em_markov_shardmap.__wrapped__(
+        params0, assign0, zj, xj, mesh=mesh2, n_steps=25
+    ) if False else sharded_em.train_em_masked_kalman_shardmap(
+        params0, assign0, zj, xj, mesh=mesh2, n_steps=25
     )
     assert (int(st_ref), int(it_ref)) == (int(st_p), int(it_p))
     np.testing.assert_array_equal(np.asarray(a_ref), np.asarray(a_p))
@@ -542,10 +543,11 @@ def test_mixture_multistart_multichip_with_refills(problem, monkeypatch):
 
 
 def test_markov_shardmap_phi_routing_is_exact_noop(problem, monkeypatch):
-    """MTM_MARKOV_PRECOMP toggles the per-shard materialized-feature (Φ)
-    route inside the shard_map Markov trainers; on ≡ off must be
-    bit-equal (the Φ-reading kernel reads the same features the packed
-    kernel rebuilds every iteration — dropped ACC slots carry exact zeros)."""
+    """The shard_map Markov trainer builds its wide Φ per shard (compact
+    layout) and psums the per-shard statistics; that routing must leave
+    the trajectory of the single-device trainer unchanged on the f64
+    mesh: status, iterations and assignments equal, parameters to psum
+    reassociation."""
     from jax.sharding import Mesh
 
     z = np.asarray(problem["z"])
@@ -561,12 +563,16 @@ def test_markov_shardmap_phi_routing_is_exact_noop(problem, monkeypatch):
         lens,
     )
 
-    monkeypatch.setenv("MTM_MARKOV_PRECOMP", "1")
-    on = sharded_em.train_em_markov_shardmap(*args, mesh=mesh, n_steps=40)
-    monkeypatch.setenv("MTM_MARKOV_PRECOMP", "0")
-    off = sharded_em.train_em_markov_shardmap(*args, mesh=mesh, n_steps=40)
-    for a, b in zip(jax.tree.leaves(on), jax.tree.leaves(off)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    monkeypatch.setenv("MTM_MARKOV_PHI", "wide")
+    ref = em.train_em_markov(*args, n_steps=40)
+    got = sharded_em.train_em_markov_shardmap(*args, mesh=mesh, n_steps=40)
+    assert int(got[3]) == int(ref[3])
+    assert int(got[2]) == int(ref[2])
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-8, atol=1e-8
+        )
 
 
 def test_markov_shardmap_i16_matches_single_device(problem, monkeypatch):
@@ -846,7 +852,7 @@ def test_mixture_multistart_masked_filter_multichip(monkeypatch):
 
 
 def test_bench_multichip_entry_runs_on_cpu_mesh(monkeypatch):
-    """The MTM_BENCH_MULTICHIP=1 bench route (bench.bench_tpu_multichip)
+    """The MTM_BENCH_MULTICHIP=1 bench route (bench.bench_multidevice)
     must stay runnable: build a small batch with bench's own data
     builder (layout="tnd") and drive the full shard_map Markov trainer
     over whatever devices the test backend exposes.  Guards the
@@ -859,6 +865,6 @@ def test_bench_multichip_entry_runs_on_cpu_mesh(monkeypatch):
     b0, b1, _zb, _xb, _vb, patterns, pid = bench._make_data(
         n, layout="tnd"
     )
-    rate, n_chips = bench.bench_tpu_multichip(b0, b1, patterns, pid)
+    rate, n_chips = bench.bench_multidevice(b0, b1, patterns, pid)
     assert n_chips == len(jax.devices())
     assert np.isfinite(rate) and rate >= 0.0

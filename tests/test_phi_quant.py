@@ -2,7 +2,7 @@
 
 The default f32 Markov production path stores the materialized feature
 matrix int16-quantized with one scale per feature row
-(ops/pallas_markov.py:PhiQuant): the per-iteration HBM stream halves and
+(ops/markov_phi.py:PhiQuant): the per-iteration read of Φ halves and
 the ONLY approximation anywhere is the storage rounding — the scales are
 folded exactly into the score-GEMM weights and un-folded from the stats
 GEMM, so these tests pin (a) the rounding bound, (b) iteration-level
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from multimodal_trajectory_modeling_tpu.models import em
 from multimodal_trajectory_modeling_tpu.ops import markov as mops
-from multimodal_trajectory_modeling_tpu.ops import pallas_markov as pm
+from multimodal_trajectory_modeling_tpu.ops import markov_phi as pm
 
 from test_em_engine import _make_mixture_data, _random_init_params
 
@@ -105,11 +105,9 @@ def test_from_features_quantized_iteration_close():
     prev = jnp.zeros((n,), jnp.int32)
     a_w, c_w, s_w, g_w, o_w = pm.markov_em_from_features(
         phi_w, lens, prev, Wg, T=T, d=d, l=l, layout=layout,
-        interpret=True,
     )
     a_q, c_q, s_q, g_q, o_q = pm.markov_em_from_features(
         phi_q, lens, prev, Wg, T=T, d=d, l=l, layout=layout,
-        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(a_w), np.asarray(a_q))
     np.testing.assert_array_equal(np.asarray(c_w), np.asarray(c_q))
@@ -137,11 +135,9 @@ def test_from_features_multi_quantized_iteration_close():
     prev = jnp.zeros((R, n), jnp.int32)
     outs_w = pm.markov_em_from_features_multi(
         phi_w, lens, prev, Wg, T=T, d=d, l=l, layout=layout,
-        interpret=True,
     )
     outs_q = pm.markov_em_from_features_multi(
         phi_q, lens, prev, Wg, T=T, d=d, l=l, layout=layout,
-        interpret=True,
     )
     np.testing.assert_array_equal(
         np.asarray(outs_w[0]), np.asarray(outs_q[0])

@@ -109,7 +109,7 @@ def test_density_routes_agree_on_random_shapes(seed):
     # the filter covers every regime (all-NaN rows pin to exactly 0.0)
     filt = np.asarray(
         em.masked_logliks_kalman(
-            params, jnp.asarray(z), jnp.asarray(x), pallas_mode="off"
+            params, jnp.asarray(z), jnp.asarray(x)
         )
     )
     np.testing.assert_allclose(filt, dense, rtol=1e-8, atol=1e-8)
